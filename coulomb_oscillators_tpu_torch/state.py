@@ -1,0 +1,46 @@
+"""Particle state.
+
+Twin of ``coulomb_oscillators_tpu/state.py``: positions, velocities and
+cached accelerations as ``[N, DIM]`` tensors on one device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class ParticleState(NamedTuple):
+    """Positions, velocities and cached accelerations of N particles."""
+
+    pos: torch.Tensor  # [N, DIM]
+    vel: torch.Tensor  # [N, DIM]
+    acc: torch.Tensor  # [N, DIM] — cached force from the last evaluation
+
+    @property
+    def n(self) -> int:
+        return self.pos.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.pos.shape[1]
+
+    @classmethod
+    def create(cls, pos, vel, acc=None, device=None) -> "ParticleState":
+        pos = torch.as_tensor(pos, device=device)
+        vel = torch.as_tensor(vel, device=pos.device)
+        acc = (torch.zeros_like(pos) if acc is None
+               else torch.as_tensor(acc, device=pos.device))
+        return cls(pos=pos, vel=vel, acc=acc)
+
+
+def particle_state_from_numpy(pos: np.ndarray, vel: np.ndarray,
+                              acc: np.ndarray | None = None,
+                              device="cpu") -> ParticleState:
+    """State from host arrays (copies; the arrays stay the caller's)."""
+    def up(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+    return ParticleState(up(pos), up(vel),
+                         torch.zeros_like(up(pos)) if acc is None else up(acc))
