@@ -1,33 +1,50 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — the kd-tree FMM Simulator at N=1,000,000
-(the README's Gaussian beam, p=6, r=1.67) — through the entry points a user
-calls, and checks it:
+Drives the port's paths through the entry points a user calls, and checks
+them: the kd-tree FMM Simulator at N=1,000,000 (the README's Gaussian beam,
+p=6, r=1.67), and the CLI's direct engine at its default N=30001.
 
   1. device: a CUDA card, its name and power limit, the toolchain, and
      float32 matmuls kept out of TF32;
-  2. build: the P2P kernel (csrc/p2p.cu, nvcc for sm_90a) and the native
-     host library (g++), from the sources in this checkout;
-  3. P2P kernel vs its plain PyTorch version on the card, on the real
-     N=1M engine state (nsub=4) and on a sub_depth=0 engine (nsub=1):
-     max|da| / max|a| <= 1e-5, with CUDA-event times of both;
+  2. build: the two kernels (csrc/p2p.cu, csrc/direct.cu; nvcc for sm_90a)
+     and the native host library (g++), all from the sources in this
+     checkout and all started together;
+  3. P2P kernel vs its plain PyTorch version on the card at N=1M, on the
+     real engine state (nsub=4, CB=128), a sub_depth=0 engine (nsub=1),
+     dens_inhom=0.25 (CB=512) and tree_L=10 (CB=1024): max|da| / max|a|
+     <= 1e-5, with CUDA-event times of both;
   4. accuracy: engine.force at N=1M against the Kahan direct oracle on
      1,000 seeded targets, mean relative error <= 1e-3;
   5. simulator: a small run on the card against the same run on the CPU,
      then init_acc + 4 windows of tree_steps=8 at N=1M with the default
      async rebuild pipeline (the first boundary primes it, the next two
      adopt background re-sorts with a repad); positions stay finite and
-     the kernel's launch count equals the number of force evaluations.
+     the P2P kernel's launch count equals the number of force evaluations;
+  6. the direct kernel: at n=1000 (dims 2 and 3) against Kahan, mean
+     relative error <= 1e-6; at N=30001 (the CLI's 3D Gaussian beam and
+     2D KV beam) against the plain version, max|da| / max|a| <= 1e-5, and
+     against Kahan within max(1e-5, 2x the plain version's error), with
+     CUDA-event times of both;
+  7. the CLI on the card (cli.main): a 3D direct run with snapshots, a
+     resume from its last snapshot, a 2D direct run (float64 files), and
+     -test; snapshot names and byte sizes as the reference writes them, and
+     the direct kernel's launch count equals the force evaluations;
+  8. energy: Simulator("direct") at N=30001, dt=2e-5, 2000 leapfrog steps
+     in blocks of 500, relative drift of total_energy_kahan <= 1e-6; and
+     the kd engine's potential (p=5, r=2.5) against Kahan pair rows, mean
+     relative error <= 2e-3.
 
 Any failure raises: the script then exits non-zero without its last line.
 Usage, from the repository root:  python3 chip_smoke.py
 """
 
+import concurrent.futures
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 N = 1_000_000
@@ -37,6 +54,10 @@ N_TARGETS = 1000
 WINDOWS = 4
 P2P_TOL = 1e-5          # the reference's own kernel contract
 FORCE_TOL = 1e-3        # mean relative force error against Kahan
+N_CLI = 30001           # the CLI's default -n
+DIRECT_KAHAN_TOL = 1e-6  # direct kernel vs Kahan at n=1000 (test_direct.py)
+DRIFT_TOL = 1e-6        # energy drift bound (README north star)
+POT_TOL = 2e-3          # FMM potential vs Kahan rows (test_fmm_kd.py)
 
 
 def _require(ok: bool, what: str) -> None:
@@ -77,6 +98,66 @@ def _rel_dev(a, b):
             float(d.abs().max()))
 
 
+def _p2p_case(cfg, sub_depth, pos, torch):
+    """P2P kernel vs plain on one engine built from `pos`."""
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR, KdFmmEngine
+    eng = KdFmmEngine(cfg, N, sub_depth=sub_depth)
+    tb = time.perf_counter()
+    fs = eng.build(pos)
+    torch.cuda.synchronize()
+    tb = time.perf_counter() - tb
+    ppad = eng.pad_array(pos, fs, fill=FAR)
+    pblk = ppad.reshape(eng.G_blk, eng.C_blk, 3)
+
+    def kern():
+        return eng._stage_p2p(ppad, fs)
+
+    def plain():
+        return p2p_cuda.p2p_plain(pblk, fs.p2p_row_ptr, fs.p2p_col2d,
+                                  eng.nsub, cfg.eps2)
+
+    got = kern().reshape(pblk.shape)
+    ref = plain()
+    torch.cuda.synchronize()
+    _require(bool(torch.isfinite(got).all()), "finite kernel output")
+    rel, mabs = _rel_dev(got, ref)
+    ms = _cuda_ms(kern, 10, torch)
+    plain_ms = _cuda_ms(plain, 2, torch)
+    tiles = int(fs.p2p_valid.sum())
+    # pair evaluations the kernel makes: C targets x C sources per set
+    # mask bit of every (sub-leaf, block) entry, pad lanes included
+    bits = (fs.p2p_src[fs.p2p_valid].long() & 0xFFFFFFFF) >> eng.mask_shift
+    pairs = eng.st.C ** 2 * int(sum((bits >> q) & 1
+                                    for q in range(eng.nsub)).sum())
+    print(f"p2p nsub={eng.nsub} L={eng.L} C={eng.st.C} Gb={eng.G_blk} "
+          f"CB={eng.C_blk} dmax={fs.p2p_col2d.shape[1]} tiles={tiles} "
+          f"pairs={pairs} build_s={tb:.3f}: rel_dev={rel:.3e} "
+          f"max_abs={mabs:.3e} kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+          f"kernel_Gpairs_per_s={pairs / ms / 1e6:.1f}")
+    _require(rel <= P2P_TOL, f"P2P kernel vs plain at nsub={eng.nsub}, "
+             f"CB={eng.C_blk}: {rel:.3e} <= {P2P_TOL}")
+    return dict(nsub=eng.nsub, CB=eng.C_blk, max_rel_err=rel, max_abs_err=mabs,
+                max_abs_ref=float(ref.abs().max()), ms=ms, plain_ms=plain_ms)
+
+
+def _cli_beams(n):
+    """The CLI's default 3D Gaussian beam and 2D KV beam at `n`: (config,
+    float32 positions, velocities) per dim."""
+    import numpy as np
+    from coulomb_oscillators_tpu_torch import SimConfig
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+    from coulomb_oscillators_tpu_torch.models.beams import matched_beam_2d
+    cfg3 = SimConfig()
+    u = tuple(w * x for w, x in zip(cfg3.omega0, X_STD))
+    p3, v3 = ID.init_gaussian(n, X_STD, u)
+    om = (6.22 * 2 * np.pi, 6.21 * 2 * np.pi)
+    beam = matched_beam_2d(om, (0.03e-3, 0.01e-3), 0.8)
+    cfg2 = SimConfig(dim=2, omega0=om, xi=beam["xi"])
+    p2, v2 = ID.init_kv(n, beam["A"], beam["omega"], dtype=np.float32)
+    return {3: (cfg3, p3, v3), 2: (cfg2, p2, v2)}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -94,14 +175,18 @@ def main() -> int:
         print(f"chip_smoke: the port's package is missing ({e}); run from "
               f"the repository root", file=sys.stderr)
         return 1
-    from coulomb_oscillators_tpu_torch import native
+    from coulomb_oscillators_tpu_torch import cli, native
     from coulomb_oscillators_tpu_torch.models import init_dist as ID
+    from coulomb_oscillators_tpu_torch.models import integrators as I
+    from coulomb_oscillators_tpu_torch.models import oscillator as M
     from coulomb_oscillators_tpu_torch.ops import direct as D
+    from coulomb_oscillators_tpu_torch.ops import energy as E
     from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
-    from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR, KdFmmEngine
+    from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import KdFmmEngine
     from coulomb_oscillators_tpu_torch.ops.reductions import mean_rel_err
     from coulomb_oscillators_tpu_torch.simulate import Simulator
     from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
+    from coulomb_oscillators_tpu_torch.utils import io as SIO
 
     dev = torch.device("cuda", 0)
     smi = _smi()
@@ -109,7 +194,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
-    print(subprocess.run([p2p_cuda.nvcc(), "--version"], capture_output=True,
+    print(subprocess.run([native.nvcc(), "--version"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[-1])
     _require(torch.backends.cuda.matmul.allow_tf32 is False,
              "TF32 matmuls are off")
@@ -117,15 +202,19 @@ def main() -> int:
              "float32 matmul precision is 'highest'")
     _phase("device", t0)
 
-    # ---- 2. build ------------------------------------------------------
+    # ---- 2. build: one compiler per source, all started together --------
     t0 = time.perf_counter()
-    p2p_cuda.get_lib()
-    native.get_lib()
-    print(f"build: p2p.cu {p2p_cuda.build_seconds:.2f} s, co_native.cpp "
-          f"{native.build_seconds:.2f} s")
-    for line in p2p_cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(p2p_cuda.library.get),
+                  pool.submit(D.library.get), pool.submit(native.get_lib)]:
+            f.result()
+    print(f"build: p2p.cu {p2p_cuda.library.build_seconds:.2f} s, direct.cu "
+          f"{D.library.build_seconds:.2f} s, co_native.cpp "
+          f"{native.build_seconds:.2f} s (concurrent)")
+    for lib in (p2p_cuda.library, D.library):
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {lib.name}: {line.strip()}")
     _phase("build", t0)
 
     # ---- 3. P2P kernel vs plain ----------------------------------------
@@ -134,48 +223,13 @@ def main() -> int:
     u_std = tuple(w * x for w, x in zip(cfg.omega0, X_STD))
     pos_h, vel_h = ID.init_gaussian(N, X_STD, u_std, seed=SEED)
     pos = torch.from_numpy(pos_h).to(dev)
-    p2p_rows = []
-    for sub_depth in (2, 0):
-        eng = KdFmmEngine(cfg, N, sub_depth=sub_depth)
-        tb = time.perf_counter()
-        fs = eng.build(pos)
-        torch.cuda.synchronize()
-        tb = time.perf_counter() - tb
-        ppad = eng.pad_array(pos, fs, fill=FAR)
-        pblk = ppad.reshape(eng.G_blk, eng.C_blk, 3)
-
-        def kern():
-            return eng._stage_p2p(ppad, fs)
-
-        def plain():
-            return p2p_cuda.p2p_plain(pblk, fs.p2p_row_ptr, fs.p2p_col2d,
-                                      eng.nsub, cfg.eps2)
-
-        got = kern().reshape(pblk.shape)
-        ref = plain()
-        torch.cuda.synchronize()
-        _require(bool(torch.isfinite(got).all()), "finite kernel output")
-        rel, mabs = _rel_dev(got, ref)
-        ms = _cuda_ms(kern, 10, torch)
-        plain_ms = _cuda_ms(plain, 2, torch)
-        tiles = int(fs.p2p_valid.sum())
-        # pair evaluations the kernel makes: C targets x C sources per set
-        # mask bit of every (sub-leaf, block) entry, pad lanes included
-        bits = (fs.p2p_src[fs.p2p_valid].long() & 0xFFFFFFFF) \
-            >> eng.mask_shift
-        pairs = eng.st.C ** 2 * int(sum((bits >> q) & 1
-                                        for q in range(eng.nsub)).sum())
-        print(f"p2p nsub={eng.nsub} L={eng.L} C={eng.st.C} Gb={eng.G_blk} "
-              f"CB={eng.C_blk} dmax={fs.p2p_col2d.shape[1]} tiles={tiles} "
-              f"pairs={pairs} build_s={tb:.3f}: rel_dev={rel:.3e} "
-              f"max_abs={mabs:.3e} kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-              f"kernel_Gpairs_per_s={pairs / ms / 1e6:.1f}")
-        _require(rel <= P2P_TOL, f"P2P kernel vs plain at nsub={eng.nsub}: "
-                 f"{rel:.3e} <= {P2P_TOL}")
-        p2p_rows.append(dict(nsub=eng.nsub, rel=rel, max_abs=mabs, ms=ms,
-                             plain_ms=plain_ms,
-                             max_ref=float(ref.abs().max())))
-        del eng, fs, ppad, pblk, got, ref
+    # the main path's engine, sub_depth=0, and the two blocks wider than
+    # 256 slots that the CLI's -i 0.25 and -maxlevel 10 reach
+    p2p_rows = [_p2p_case(c, sd, pos, torch) for c, sd in (
+        (cfg, 2), (cfg, 0), (cfg.replace(dens_inhom=0.25), 2),
+        (cfg.replace(tree_L=10), 2))]
+    _require([r["CB"] for r in p2p_rows[2:]] == [512, 1024],
+             f"wide-block engines: {[r['CB'] for r in p2p_rows]}")
     _phase("p2p", t0)
 
     # ---- 4. accuracy ---------------------------------------------------
@@ -237,13 +291,13 @@ def main() -> int:
         job_s.append(sum(sim._fmm.last_build_times.values()))
     final = sim.current_state()
     torch.cuda.synchronize()
-    launches = p2p_cuda.launches
+    p2p_launches = p2p_cuda.launches
     sim.close()
     evals = 1 + WINDOWS * ts
     _require(bool(torch.isfinite(final.pos).all())
              and final.pos.shape == (N, 3), "finite [N, 3] positions")
-    _require(launches == evals,
-             f"{launches} P2P kernel launches == {evals} force evaluations")
+    _require(p2p_launches == evals,
+             f"{p2p_launches} P2P kernel launches == {evals} force evaluations")
     _require(sim.rebuilds["adopt_full"] == WINDOWS - 2,
              f"{WINDOWS - 2} adopted background rebuilds: {dict(sim.rebuilds)}")
     _require(native._lib is not None, "the native host library was used")
@@ -253,18 +307,191 @@ def main() -> int:
           f"rebuilds {dict(sim.rebuilds)}; boundary wait s {wait_s}; "
           f"host rebuild s {job_s}; "
           f"last rebuild breakdown {sim._fmm.last_build_times}; "
-          f"p2p launches {launches} = force evals {evals}")
+          f"p2p launches {p2p_launches} = force evals {evals}")
+    del sim, state, final, pos
     _phase("simulator", t0)
 
-    row = p2p_rows[0]
-    print(json.dumps({"kernels": [{
-        "name": "p2p", "route": "cuda",
-        "source": "coulomb_oscillators_tpu_torch/csrc/p2p.cu",
-        "replaces": "coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py:52",
-        "also_replaces": "coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py:110",
-        "launches": launches, "max_abs_err": row["max_abs"],
-        "max_abs_ref": row["max_ref"], "max_rel_err": row["rel"],
-        "ms": row["ms"], "plain_ms": row["plain_ms"]}]}))
+    # ---- 6. direct kernel vs plain and Kahan ---------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1234)
+    for dim in (2, 3):
+        p = torch.from_numpy(rng.normal(size=(1000, dim)).astype(np.float32)
+                             * 0.01).to(dev)
+        e = float(mean_rel_err(D.direct(p, 1e-18, 2e-9),
+                               D.direct_kahan(p, 1e-18, 2e-9)))
+        print(f"direct n=1000 dim={dim}: mean rel err vs Kahan {e:.3e} "
+              f"(bound {DIRECT_KAHAN_TOL})")
+        _require(e <= DIRECT_KAHAN_TOL, f"direct n=1000 dim={dim} vs Kahan "
+                 f"{e:.3e} <= {DIRECT_KAHAN_TOL}")
+    beams = _cli_beams(N_CLI)
+    direct_rows = {}
+    for dim in (3, 2):
+        c, ph, _ = beams[dim]
+        p = torch.from_numpy(ph).to(dev)
+        eps2, kap = c.eps2, c.kappa(N_CLI)
+        got = D.direct(p, eps2, kap)
+        plain = D.direct_plain(p, eps2, kap)
+        kahan = D.direct_kahan(p, eps2, kap)
+        rel, mabs = _rel_dev(got, plain)
+        e_k = float(mean_rel_err(got, kahan))
+        e_p = float(mean_rel_err(plain, kahan))
+        ms = _cuda_ms(lambda: D.direct(p, eps2, kap), 20, torch)
+        plain_ms = _cuda_ms(lambda: D.direct_plain(p, eps2, kap), 3, torch)
+        pairs = N_CLI * N_CLI
+        print(f"direct N={N_CLI} dim={dim} splits="
+              f"{D.splits_for(N_CLI, torch.cuda.get_device_properties(dev).multi_processor_count)}: "
+              f"kernel vs plain rel_dev={rel:.3e} max_abs={mabs:.3e}; mean "
+              f"rel err vs Kahan kernel {e_k:.3e} plain {e_p:.3e}; "
+              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+              f"kernel_Gpairs_per_s={pairs / ms / 1e6:.1f} "
+              f"plain_Gpairs_per_s={pairs / plain_ms / 1e6:.2f}")
+        _require(bool(torch.isfinite(got).all()), "finite direct output")
+        _require(rel <= P2P_TOL, f"direct dim={dim} vs plain {rel:.3e} <= "
+                 f"{P2P_TOL}")
+        _require(e_k <= max(1e-5, 2 * e_p), f"direct dim={dim} vs Kahan "
+                 f"{e_k:.3e} <= max(1e-5, 2 x {e_p:.3e})")
+        direct_rows[dim] = dict(dim=dim, max_rel_err=rel, max_abs_err=mabs,
+                                max_abs_ref=float(plain.abs().max()),
+                                kahan_mean_rel_err=e_k,
+                                plain_kahan_mean_rel_err=e_p, ms=ms,
+                                plain_ms=plain_ms)
+    _phase("direct", t0)
+
+    # ---- 7. the CLI on the card ----------------------------------------
+    t0 = time.perf_counter()
+    # an independent count of force evaluations: every "direct" Coulomb
+    # force the CLI builds goes through make_coulomb_force
+    make_coulomb = M.make_coulomb_force
+    force_evals = [0]
+
+    def counting_coulomb(config, n, engine="direct"):
+        f = make_coulomb(config, n, engine)
+        if engine != "direct":
+            return f
+
+        def counted(p):
+            force_evals[0] += 1
+            return f(p)
+        return counted
+
+    per_step = I.FORCE_EVALS["leapfrog"]
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [
+            ("3d", ["-n", str(N_CLI), "-iters", "200", "-steps", "100",
+                    "-engine", "direct"], 3, np.float32, [0, 100, 200]),
+            ("resume", [None, "-iters", "100", "-steps", "100",
+                        "-engine", "direct"], 3, np.float32, [0, 100]),
+            ("2d", ["-dim", "2", "-engine", "direct", "-n", str(N_CLI),
+                    "-iters", "100", "-steps", "100"], 2, np.float64,
+             [0, 100]),
+        ]
+        M.make_coulomb_force = counting_coulomb
+        D.launches = 0
+        try:
+            for name, args, dim, fdt, its in runs:
+                out = os.path.join(tmp, name)
+                if args[0] is None:          # resume from the 3D run's last
+                    args = [SIO.snapshot_name(os.path.join(tmp, "3d"), 200,
+                                              5e-4)] + args[1:]
+                tc = time.perf_counter()
+                _require(cli.main(args + ["-o", out]) == 0, f"cli {name}")
+                tc = time.perf_counter() - tc
+                iters = int(args[args.index("-iters") + 1])
+                want = sorted(f"out{i}_0.000500.bin" for i in its)
+                got = sorted(f for f in os.listdir(out) if f.endswith(".bin"))
+                _require(got == want, f"cli {name} snapshots {got} == {want}")
+                _require(os.path.exists(os.path.join(out, "args.txt")),
+                         f"cli {name} args.txt")
+                size = 2 * N_CLI * dim * np.dtype(fdt).itemsize
+                for f in got:
+                    _require(os.path.getsize(os.path.join(out, f)) == size,
+                             f"cli {name} {f} is {size} bytes")
+                sp, sv = SIO.read_state(os.path.join(out, want[-1]), dim=dim,
+                                        dtype=fdt)
+                _require(sp.shape == (N_CLI, dim) and np.isfinite(sp).all()
+                         and np.isfinite(sv).all(), f"cli {name} finite")
+                print(f"cli {name}: {iters} iterations in {tc:.3f} s "
+                      f"({(iters + 1) * N_CLI / tc / 1e6:.2f} M "
+                      f"particle-steps/s incl. start-up and snapshots); "
+                      f"{len(got)} snapshots of {size} bytes")
+            sim_evals = sum(1 + (int(a[a.index("-iters") + 1]) + 1) * per_step
+                            for _, a, *_ in runs)
+            _require(force_evals[0] == sim_evals == D.launches,
+                     f"direct launches {D.launches} == force evaluations "
+                     f"{force_evals[0]} == {sim_evals}")
+            tc = time.perf_counter()
+            _require(cli.main(["-test", "-engine", "direct", "-n",
+                               str(N_CLI)]) == 0, "cli -test")
+            tc = time.perf_counter() - tc
+        finally:
+            M.make_coulomb_force = make_coulomb
+        direct_launches = D.launches
+    _require(direct_launches == force_evals[0] > sim_evals,
+             f"direct launches {direct_launches} == force evaluations "
+             f"{force_evals[0]} (with -test)")
+    print(f"cli -test: {tc:.3f} s; direct launches {direct_launches} = "
+          f"force evals {force_evals[0]}")
+    _phase("cli", t0)
+
+    # ---- 8. energy -----------------------------------------------------
+    t0 = time.perf_counter()
+    c3, p3, v3 = beams[3]
+    ecfg = c3.replace(dt=2e-5)
+    sim = Simulator(ecfg, N_CLI, "direct")
+    kap, om2 = ecfg.kappa(N_CLI), ecfg.omega0_sq()
+    st = sim.init_acc(particle_state_from_numpy(p3, v3, device=dev))
+    te = time.perf_counter()
+    e0 = E.total_energy_kahan(st.pos, st.vel, ecfg.eps2, kap, om2)
+    te = time.perf_counter() - te
+    drifts = []
+    tr = time.perf_counter()
+    for _ in range(4):
+        st = sim.run(st, 500)
+        e = E.total_energy_kahan(st.pos, st.vel, ecfg.eps2, kap, om2)
+        drifts.append(abs(e - e0) / abs(e0))
+    tr = time.perf_counter() - tr
+    sim.close()
+    print(f"energy: direct N={N_CLI} dt={ecfg.dt} leapfrog, 2000 steps: "
+          f"relative drift after each 500 {drifts}; max {max(drifts):.3e} "
+          f"(bound {DRIFT_TOL}); E0={e0:.12e}; total_energy_kahan "
+          f"{te:.3f} s; 2000 steps + 4 energies {tr:.3f} s")
+    _require(max(drifts) <= DRIFT_TOL, f"drift {max(drifts):.3e} <= "
+             f"{DRIFT_TOL} at dt={ecfg.dt}")
+    pcfg = SimConfig(fmm_order=5, tree_radius=2.5)
+    p = torch.from_numpy(p3).to(dev)
+    eng = KdFmmEngine(pcfg, N_CLI)
+    fs = eng.build(p)
+    tp = time.perf_counter()
+    phi = eng.potential(p, fs)
+    torch.cuda.synchronize()
+    tp = time.perf_counter() - tp
+    rows = pcfg.kappa(N_CLI) * E.potential_rows_kahan(p, pcfg.eps2)
+    pe = float(((phi - rows).abs() / rows.abs()).mean())
+    print(f"potential: kd p=5 r=2.5 N={N_CLI} ({tp:.3f} s) mean rel err "
+          f"vs Kahan rows {pe:.3e} (bound {POT_TOL})")
+    _require(bool(torch.isfinite(phi).all()) and phi.shape == (N_CLI,),
+             "finite [N] potential")
+    _require(pe <= POT_TOL, f"potential {pe:.3e} <= {POT_TOL}")
+    _phase("energy", t0)
+
+    row, drow = p2p_rows[0], direct_rows[3]
+    print(json.dumps({"kernels": [
+        {"name": "p2p", "route": "cuda",
+         "source": "coulomb_oscillators_tpu_torch/csrc/p2p.cu",
+         "replaces": "coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py:52",
+         "also_replaces": "coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py:110",
+         "launches": p2p_launches, "max_abs_err": row["max_abs_err"],
+         "max_abs_ref": row["max_abs_ref"],
+         "max_rel_err": row["max_rel_err"], "ms": row["ms"],
+         "plain_ms": row["plain_ms"], "cases": p2p_rows},
+        {"name": "direct", "route": "cuda",
+         "source": "coulomb_oscillators_tpu_torch/csrc/direct.cu",
+         "replaces": "coulomb_oscillators_tpu/ops/direct.py:161",
+         "launches": direct_launches, "max_abs_err": drow["max_abs_err"],
+         "max_abs_ref": drow["max_abs_ref"],
+         "max_rel_err": drow["max_rel_err"], "ms": drow["ms"],
+         "plain_ms": drow["plain_ms"], "cases": [direct_rows[3],
+                                                 direct_rows[2]]}]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

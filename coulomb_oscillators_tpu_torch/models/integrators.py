@@ -92,3 +92,10 @@ def make_step(
         return ParticleState(pos, vel, acc)
 
     return step
+
+
+def nsteps(step_fn, state: ParticleState, n: int) -> ParticleState:
+    """Run `n` steps (the twin's lax.scan, as a Python loop)."""
+    for _ in range(n):
+        state = step_fn(state)
+    return state

@@ -1,5 +1,6 @@
 """ctypes bindings for the native host runtime, and the shared-library
-builder the port's compiled sources use.
+builder (and the loader of the CUDA kernels) the port's compiled sources
+use.
 
 Twin of ``coulomb_oscillators_tpu/native/__init__.py``: the same functions
 (``kdtree_build``, ``node_geometry``, ``traverse_fine``) over the reference's
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 import time
@@ -62,6 +64,46 @@ def build_library(src: str, name: str, cmd: list):
         raise RuntimeError(f"building {src} failed:\n{res.stdout}{res.stderr}")
     os.replace(tmp, so)
     return so, res.stdout + res.stderr
+
+
+# nvcc flags of every kernel library (route (b): a plain C interface,
+# loaded with ctypes; no --use_fast_math)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def nvcc() -> str:
+    """The nvcc to build with: the one on PATH, else the CUDA default."""
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+class CudaLibrary:
+    """A ``csrc/*.cu`` source built with nvcc for sm_90a into BUILD_DIR at
+    first use (never at import) and loaded with ctypes; `bind` declares
+    the loaded library's argtypes and restypes."""
+
+    def __init__(self, src: str, name: str, bind):
+        self.src = src
+        self.name = name
+        self._bind = bind
+        self._lock = threading.Lock()
+        self._lib = None
+        self.build_seconds = None  # wall time of this process's build + load
+        self.build_log = ""        # nvcc's output of that build ("" if cached)
+
+    def get(self):
+        """The loaded library; builds it on first use and raises if it
+        cannot be built or loaded."""
+        with self._lock:
+            if self._lib is None:
+                t0 = time.perf_counter()
+                so, self.build_log = build_library(self.src, self.name,
+                                                   [nvcc()] + NVCC_FLAGS)
+                lib = ctypes.CDLL(so)
+                self._bind(lib)
+                self.build_seconds = time.perf_counter() - t0
+                self._lib = lib
+            return self._lib
 
 
 def get_lib():

@@ -28,3 +28,16 @@ def make_engine_object(config, n, name: str):
             f"engine {name!r} is not ported yet: ROADMAP.md "
             f"{_NOT_PORTED[name]}")
     raise ValueError(f"unknown FMM engine {name!r}")
+
+
+def make_engine(config, n, name: str):
+    """pos -> acc callable that rebuilds its tree every call (test modes;
+    for amortized stepping use the engine object / Simulator).  The engine
+    object is the callable's ``.engine``."""
+    eng = make_engine_object(config, n, name)
+
+    def force(pos):
+        return eng.force(pos, eng.build(pos))
+
+    force.engine = eng
+    return force

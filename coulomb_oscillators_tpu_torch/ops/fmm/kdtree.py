@@ -16,7 +16,7 @@ CUDA paths never differ in layout.  On a CUDA tensor the P2P stage runs the
 hand-written kernel (``p2p_cuda``); the far field is plain PyTorch.
 
 Not ported here (see ROADMAP.md): the numpy ``_traverse_raw`` fallback and
-the device Morton / kd builders, ``potential``, dim 2, float64, and the
+the device Morton / kd builders, dim 2, float64, and the
 reference's TPU-only workarounds (flattened P2P operand, optimization
 barriers, the three-program force split, stored-fold M2L).
 """
@@ -49,6 +49,9 @@ LEAF_TARGET = 32
 M2L_GROUP = 8
 M2L_CAP_QUANTUM = 65536
 M2L_LOOP_CHUNK = 1 << 19
+# pairs per chunk of the near-field potential (bounds its [k, C, CB]
+# temporaries)
+_NEAR_PAIRS = 1 << 25
 
 
 def auto_level(n: int, p: int, dens_inhom: float = 1.0,
@@ -400,7 +403,9 @@ class KdFmmEngine:
                                   side="left").astype(np.int32)
         degrees = np.diff(row_ptr)
         dmax = int(degrees.max()) if degrees.size else 1
-        if dmax > self.caps.get("dmax", 0):
+        # first sizing even for an empty list (coll=False): the CSR and
+        # col2d are built on every device
+        if "dmax" not in self.caps or dmax > self.caps["dmax"]:
             grown = self.caps.get("dmax", 0) * 5 // 4
             dmax = max(128, -(-max(int(dmax * 1.25), grown) // 128) * 128)
             self.caps["dmax"] = dmax
@@ -539,17 +544,36 @@ class KdFmmEngine:
         (twin of ``force_padded_in_jit``).  Pad slots (pos = FAR) receive
         ~0; mask before integrating."""
         t = self.tables
-        G, C, dim = self.G_sub, self.st.C, self.dim
+        G, dim = self.G_sub, self.dim
+        V, leaf_local, leafl = self._leaf_expansions(ppad, fs)
+        kappa = float(np.float32(self.config.kappa(self.n)))
+
+        # L2P: fold the derivative table into the per-leaf locals first,
+        # W[g, a, k] = sum_j D[a, j, k] Lf[g, j], then contract against the
+        # particle monomials
+        Lf = mop.expand_L(t, leaf_local)                    # [G, S_Lf]
+        W = (Lf @ self._l2p_matrix(ppad.dtype, ppad.device)).reshape(
+            G, dim, t.S_Lf)
+        far = -torch.bmm(V, W.transpose(1, 2)) / leafl[:, None, None]
+        far = far * self.dev(ppad.device).mask3[..., None]
+
+        near = self._stage_p2p(ppad, fs)
+        return (far + near) * kappa
+
+    def _leaf_expansions(self, ppad: torch.Tensor, fs: FmmState):
+        """The far-field pipeline up to the leaf locals: leaf-frame
+        monomials V [G, C, S_Lf] (0 at pads), P2M, M2M up, M2L, L2L down.
+        Returns (V, leaf locals [G, S_Lt], leaf length scales [G])."""
+        t = self.tables
+        G, dim = self.G_sub, self.dim
         leaf0 = _heap_off(self.L)
         d = self.dev(ppad.device)
-        mask = d.mask3[..., None]
-        kappa = float(np.float32(self.config.kappa(self.n)))
 
         # leaf frames: normalized offsets, 0 at pads
         leafc = fs.center[leaf0:leaf0 + G]
         leafl = fs.lam[leaf0:leaf0 + G]
         e = (ppad - leafc[:, None, :]) / leafl[:, None, None]
-        e = torch.where(mask, e, 0.0)
+        e = torch.where(d.mask3[..., None], e, 0.0)
         V = mop.eval_monomial_cols(e, t.PL, dim)           # [G, C, S_Lf]
 
         # P2M: masked offsets are 0, so only the order-0 column needs the
@@ -564,19 +588,64 @@ class KdFmmEngine:
 
         mpole_heap = self.m2m_up(mpole_leaf, fs)
         local_heap = self._stage_m2l(mpole_heap, fs)
-        leaf_local = self.l2l_down(local_heap, fs)
+        return V, self.l2l_down(local_heap, fs), leafl
 
-        # L2P: fold the derivative table into the per-leaf locals first,
-        # W[g, a, k] = sum_j D[a, j, k] Lf[g, j], then contract against the
-        # particle monomials
+    def potential(self, pos: torch.Tensor, fs: FmmState) -> torch.Tensor:
+        """Per-particle softened Coulomb potential (kappa-scaled), original
+        order [n] (twin of ``potential``): the far field from the leaf
+        local expansions (which include the monopole term), the near field
+        over the P2P list as plain PyTorch.  The self pair is dropped
+        inside the near-field sum, not subtracted after it as in the twin:
+        phi(0) = 1/eps = 1e9 would swamp a float32 row sum."""
+        t = self.tables
+        G, C = self.G_sub, self.st.C
+        kappa = float(np.float32(self.config.kappa(self.n)))
+        ppad = self.pad_array(pos, fs, fill=FAR)
+        V, leaf_local, _ = self._leaf_expansions(ppad, fs)
         Lf = mop.expand_L(t, leaf_local)                    # [G, S_Lf]
-        W = (Lf @ self._l2p_matrix(ppad.dtype, ppad.device)).reshape(
-            G, dim, t.S_Lf)
-        far = -torch.bmm(V, W.transpose(1, 2)) / leafl[:, None, None]
-        far = far * mask
+        multv = torch.as_tensor(t.l2p_mult, dtype=pos.dtype,
+                                device=pos.device)
+        pot_far = torch.sum(V * (Lf * multv)[:, None, :], dim=2)   # [G, C]
+        pot = (pot_far + self._potential_near(ppad, fs)) \
+            * self.dev(pos.device).mask3 * kappa
+        return self.unpad_array(pot.reshape(G, C, 1), fs)[:, 0]
 
-        near = self._stage_p2p(ppad, fs)
-        return (far + near) * kappa
+    def _potential_near(self, ppad: torch.Tensor,
+                        fs: FmmState) -> torch.Tensor:
+        """Near-field potential [G, C], unscaled: for every valid P2P entry
+        (target sub-leaf, packed source block), sum rsqrt(dist2) over the
+        selected lane groups' real sources, self pairs and pad sources
+        excluded."""
+        G, C, dim = self.G_sub, self.st.C, self.dim
+        Gb, CB = self.G_blk, self.C_blk
+        dev = ppad.device
+        shift = self.mask_shift
+        valid = fs.p2p_valid
+        tgt = fs.p2p_tgt[valid].long()
+        v = fs.p2p_src[valid].long() & 0xFFFFFFFF          # uint32 view
+        blk = v & ((1 << shift) - 1)
+        bits = v >> shift
+        pblk = ppad.reshape(Gb, CB, dim)
+        real = self.dev(dev).pad_mask.reshape(Gb, CB)
+        group = torch.arange(CB, device=dev) // C
+        tslot = torch.arange(C, device=dev)
+        sslot = torch.arange(CB, device=dev)
+        out = torch.zeros(G, C, dtype=ppad.dtype, device=dev)
+        k = max(1, _NEAR_PAIRS // (C * CB))
+        for i in range(0, tgt.shape[0], k):
+            ti, bi = tgt[i:i + k], blk[i:i + k]
+            d = ppad[ti][:, :, None, :] - pblk[bi][:, None, :, :]
+            dist2 = self.config.eps2 + d[..., 0] * d[..., 0]
+            for a in range(1, dim):
+                dist2 = dist2 + d[..., a] * d[..., a]
+            keep = (((bits[i:i + k, None] >> group[None, :]) & 1) > 0) \
+                & real[bi]                                    # [k, CB]
+            notself = (ti[:, None, None] * C + tslot[None, :, None]
+                       != bi[:, None, None] * CB + sslot[None, None, :])
+            phi = torch.where(keep[:, None, :] & notself,
+                              torch.rsqrt(dist2), 0.0)
+            out.index_add_(0, ti, phi.sum(dim=2))
+        return out
 
     def _l2p_matrix(self, dtype, device) -> torch.Tensor:
         """[S_Lf, dim*S_Lf] with D[j, a*S_Lf + k] = coef of Lf[j]*V[k] in

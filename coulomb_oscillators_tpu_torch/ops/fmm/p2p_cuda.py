@@ -24,9 +24,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import threading
-import time
 
 import torch
 
@@ -39,42 +36,19 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 # kernel launches made through :func:`p2p`; counted nowhere else
 launches = 0
 
-_lock = threading.Lock()
-_lib = None
-build_seconds = None       # wall time of this process's build + load
-build_log = ""             # nvcc's output of that build ("" when cached)
-
 # pairs per chunk of the plain version (bounds its [k, C, CB] temporaries)
 _PLAIN_PAIRS = 1 << 25
 
 
-def nvcc() -> str:
-    """The nvcc to build with: the one on PATH, else the CUDA default."""
-    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+def _bind(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.co_p2p_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                  ctypes.c_float, vp]
+    lib.co_p2p_launch.restype = ci
 
 
-def get_lib():
-    """The loaded kernel library; builds csrc/p2p.cu on first use and raises
-    if it cannot be built or loaded."""
-    global _lib, build_seconds, build_log
-    with _lock:
-        if _lib is not None:
-            return _lib
-        t0 = time.perf_counter()
-        so, build_log = native.build_library(
-            SRC, "co_p2p",
-            [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v"])
-        lib = ctypes.CDLL(so)
-        vp = ctypes.c_void_p
-        ci = ctypes.c_int
-        lib.co_p2p_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                      ctypes.c_float, vp]
-        lib.co_p2p_launch.restype = ci
-        build_seconds = time.perf_counter() - t0
-        _lib = lib
-        return lib
+# csrc/p2p.cu, built at first use
+library = native.CudaLibrary(SRC, "co_p2p", _bind)
 
 
 def _check(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
@@ -108,13 +82,13 @@ def p2p(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
         raise ValueError(f"no P2P path for device {pos.device}")
     Gb, CB, _ = pos.shape
     C = CB // nsub
-    if C % 32 or CB > 256 or nsub > 8:
-        raise ValueError(f"the CUDA kernel takes C % 32 == 0, CB <= 256 and "
-                         f"nsub <= 8; got C={C}, CB={CB}, nsub={nsub}")
+    if C % 32 or nsub > 8:
+        raise ValueError(f"the CUDA kernel takes C % 32 == 0 and nsub <= 8; "
+                         f"got C={C}, CB={CB}, nsub={nsub}")
     if not (pos.is_contiguous() and row_ptr.is_contiguous()
             and col2d.is_contiguous()):
         raise ValueError("pos, row_ptr and col2d must be contiguous")
-    lib = get_lib()
+    lib = library.get()
     out = torch.empty_like(pos)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     rc = lib.co_p2p_launch(pos.data_ptr(), row_ptr.data_ptr(),

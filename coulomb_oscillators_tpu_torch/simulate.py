@@ -1,16 +1,20 @@
-"""Simulation driver: integrator x kd-FMM engine, with the async rebuild
-pipeline.
+"""Simulation driver: integrator x force engine, with the kd engine's
+async rebuild pipeline.
 
-Twin of ``coulomb_oscillators_tpu/simulate.py`` for the kd engine
-(reference sim loop main3.cu:832-874, tree rebuilt every `tree_steps`
-iterations, fmm_cart3_kdtree.cuh:1619-1642).  Between rebuilds the state
-lives as padded [G, C, dim] leaf blocks and the integrator runs as a Python
-loop of `k` steps (the twin's jitted fori_loop); at window boundaries the
-host rebuild pipeline adopts a tree built in a background thread from the
-previous boundary's positions.
+Twin of ``coulomb_oscillators_tpu/simulate.py`` (reference sim loop
+main3.cu:832-874).  Two paths:
 
-Not ported (ROADMAP.md): mesh mode, ``tree_async_build="device"``, the
-plain ``direct`` engine and the other FMM engines.
+  * the plain engines ("direct", "direct_ref"): the integrator steps the
+    oscillator force in a Python loop (the twin's jitted fori_loop);
+  * the kd engine (tree rebuilt every `tree_steps` iterations,
+    fmm_cart3_kdtree.cuh:1619-1642): between rebuilds the state lives as
+    padded [G, C, dim] leaf blocks and the integrator runs as a Python loop
+    of `k` steps; at window boundaries the host rebuild pipeline adopts a
+    tree built in a background thread from the previous boundary's
+    positions.
+
+Not ported (ROADMAP.md): mesh mode, ``tree_async_build="device"`` and the
+FMM engines other than ``fmm3_kd``.
 """
 
 from __future__ import annotations
@@ -72,30 +76,35 @@ class _HostCopy:
 
 
 class Simulator:
-    """Runs the Coulomb-oscillator system with the kd-FMM engine."""
+    """Runs the Coulomb-oscillator system with a plain engine ("direct",
+    "direct_ref") or the kd-FMM engine."""
 
     def __init__(self, config: SimConfig, n: int, engine: str = "fmm3_kd",
                  mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh mode is not ported yet: ROADMAP.md queue 1, item 10")
-        if config.tree_async and config.tree_async_build == "device":
-            raise NotImplementedError(
-                "tree_async_build='device' needs the device builders, not "
-                "ported yet: ROADMAP.md queue 1, item 3")
-        if engine == "direct":
-            raise NotImplementedError(
-                f"engine {engine!r} is not ported yet: ROADMAP.md queue 2, "
-                "item 3 (the direct kernel)")
-        from coulomb_oscillators_tpu_torch.ops import fmm as fmm_mod
         self.config = config
         self.n = n
         self.engine_name = engine
         self.omega0_sq = config.omega0_sq()
-        self._fmm = fmm_mod.make_engine_object(config, n, engine)
+        self._fmm = None
         self._fstate = None
+        self._padded = None       # kd engine: ParticleState of [G, C, dim]
+        if not (engine.startswith("fmm") or engine == "appel"):
+            from coulomb_oscillators_tpu_torch.models.oscillator import (
+                make_oscillator_force)
+            self._plain_force = make_oscillator_force(config, n, engine)
+            self._plain_step = I.make_step(self._plain_force,
+                                           config.integrator, config.dt)
+            return
+        if config.tree_async and config.tree_async_build == "device":
+            raise NotImplementedError(
+                "tree_async_build='device' needs the device builders, not "
+                "ported yet: ROADMAP.md queue 1, item 3")
+        from coulomb_oscillators_tpu_torch.ops import fmm as fmm_mod
+        self._fmm = fmm_mod.make_engine_object(config, n, engine)
         self._steps_since_build = 0
-        self._padded = None       # ParticleState of [G, C, dim] blocks
         self._last_out = None
         # host-async rebuild pipeline: queue of (due_boundary, kind, future)
         self._pqueue = collections.deque()
@@ -153,7 +162,10 @@ class Simulator:
 
     # ------------------------------------------------------------------ #
     def init_acc(self, state: ParticleState) -> ParticleState:
-        """Build the tree and precompute a0 (main3.cu:835-839)."""
+        """Precompute a0 (main3.cu:835-839); the kd engine builds its tree
+        first."""
+        if self._fmm is None:
+            return state._replace(acc=self._plain_force(state.pos))
         self._set_stale_margin(state)
         self._fstate = self._fmm.build(state.pos)
         self._steps_since_build = 0
@@ -173,6 +185,8 @@ class Simulator:
 
     def run(self, state: ParticleState, steps: int) -> ParticleState:
         """Advance `steps` iterations, rebuilding the tree as configured."""
+        if self._fmm is None:
+            return I.nsteps(self._plain_step, state, steps)
         # a state we did not hand out (or a cold start) enters padded form
         if (self._padded is None or self._fstate is None
                 or state is not self._last_out):
@@ -302,7 +316,10 @@ class Simulator:
         self._last_full = None
 
     def close(self) -> None:
-        """Finish queued rebuilds and stop the background thread."""
+        """Finish queued rebuilds and stop the background thread (nothing
+        to do for a plain engine)."""
+        if self._fmm is None:
+            return
         self._drop_pending()
         if self._pool is not None:
             self._pool.shutdown(wait=True)

@@ -55,6 +55,33 @@ def test_kernel_matches_plain(cuda, sub_depth):
     assert dev <= 1e-5, dev
 
 
+@pytest.mark.parametrize("kw", [dict(dens_inhom=0.25), dict(tree_L=10)],
+                         ids=["CB512", "CB1024"])
+def test_kernel_matches_plain_wide_blocks(cuda, kw):
+    """Blocks wider than 256 slots, which the CLI's -i and -maxlevel reach
+    at N=1M: dens_inhom=0.25 gives L=13, C=128, CB=512; tree_L=10 gives
+    sub_depth=0, C=CB=1024.  max|da|/max|a| <= 1e-5 against the plain
+    version."""
+    n = 1_000_000
+    cfg = SimConfig(fmm_order=6, tree_radius=1.67, **kw)
+    u = tuple(w * x for w, x in zip(cfg.omega0, X_STD))
+    pos_h, _ = ID.init_gaussian(n, X_STD, u, seed=0)
+    pos = torch.from_numpy(pos_h).to(cuda)
+    eng = KdFmmEngine(cfg, n)
+    assert eng.C_blk > 256
+    fs = eng.build(pos)
+    ppad = eng.pad_array(pos, fs, fill=FAR)
+    pblk = ppad.reshape(eng.G_blk, eng.C_blk, 3)
+    got = eng._stage_p2p(ppad, fs).reshape(pblk.shape)
+    ref = p2p_cuda.p2p_plain(pblk, fs.p2p_row_ptr, fs.p2p_col2d, eng.nsub,
+                             cfg.eps2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    scale = torch.linalg.vector_norm(ref, dim=-1).max()
+    dev = float(torch.linalg.vector_norm(got - ref, dim=-1).max() / scale)
+    assert dev <= 1e-5, dev
+
+
 def test_kernel_rejects_unsupported_layout(cuda):
     pos = torch.zeros(2, 96, 3, device=cuda)          # C = 24 at nsub = 4
     rp = torch.zeros(9, dtype=torch.int32, device=cuda)

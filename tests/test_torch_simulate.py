@@ -115,7 +115,7 @@ def test_stale_margin_config(beam):
 
 @pytest.mark.parametrize("kw,engine", [
     (dict(tree_async_build="device"), "fmm3_kd"),
-    (dict(), "direct"),
+    (dict(), "fmm2_kd"),
     (dict(), "fmm3"),
     (dict(), "appel"),
 ])
