@@ -33,7 +33,25 @@ p=6, r=1.67), and the CLI's direct engine at its default N=30001.
   8. energy: Simulator("direct") at N=30001, dt=2e-5, 2000 leapfrog steps
      in blocks of 500, relative drift of total_energy_kahan <= 1e-6; and
      the kd engine's potential (p=5, r=2.5) against Kahan pair rows, mean
-     relative error <= 2e-3.
+     relative error <= 2e-3;
+  9. the uniform-grid engines: the CLI's 2D default (fmm2, p=3, r=1) on
+     the N=30001 KV beam, a run with snapshots and -test; fmm3 and
+     fmm3_traceless at N=1M on the uniform box of ladder 3b (p=3 timed,
+     p=5 against Kahan on 1,000 targets <= 5e-3, the two storages within
+     1e-5 of max|a|); appel at N=1M in 3D and 2D (<= 0.09 against Kahan);
+     each engine on the card against itself on the CPU at N=100k (<= 1e-5
+     of max|a|); a Simulator("fmm3_traceless") run of 2 windows of 8 steps
+     at N=1M;
+ 10. kd in 2D and float64: fmm2_kd at ladder 2's size (N=100k, p=4, r=2,
+     2D Gaussian beam) against Kahan (<= 2e-3) and a 12-step Simulator
+     timing; fmm3_kd in float64 at N=1M with sort_mode="morton" on the
+     uniform box: the double P2P kernel against its plain float64 version
+     (<= 1e-12 of max|a|, both timed), the force against a float64 Kahan
+     oracle (<= 1e-3), and a Simulator run with tree_async_build="device"
+     over 3 windows of 8 steps (one device rebuild adopted; P2P launches ==
+     force evaluations);
+ 11. the native library: every N=1M kd build of phases 3-5 went through
+     co_native, none through the numpy traversal.
 
 Any failure raises: the script then exits non-zero without its last line.
 Usage, from the repository root:  python3 chip_smoke.py
@@ -58,6 +76,11 @@ N_CLI = 30001           # the CLI's default -n
 DIRECT_KAHAN_TOL = 1e-6  # direct kernel vs Kahan at n=1000 (test_direct.py)
 DRIFT_TOL = 1e-6        # energy drift bound (README north star)
 POT_TOL = 2e-3          # FMM potential vs Kahan rows (test_fmm_kd.py)
+N_GRID = 100_000        # uniform-grid engines, card vs CPU
+OCT_TOL = 5e-3          # octree p=5 vs Kahan (tests/test_octree.py:35)
+APPEL_TOL = 0.09        # Appel vs Kahan (tests/test_octree.py:53)
+KD2_TOL = 2e-3          # fmm2_kd vs Kahan (test_fmm_kd_variants.py:31)
+F64_P2P_TOL = 1e-12     # double P2P kernel vs its plain float64 version
 
 
 def _require(ok: bool, what: str) -> None:
@@ -158,6 +181,244 @@ def _cli_beams(n):
     return {3: (cfg3, p3, v3), 2: (cfg2, p2, v2)}
 
 
+def _uniform_box(n, dim, dtype=None):
+    """Ladder 3b's uniform box (sides +-0.01) at `n`, float32 or `dtype`."""
+    import numpy as np
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+    pos = ID.init_uniform(n, (-0.01,) * dim, (0.01,) * dim, dim=dim)
+    return pos if dtype is None else pos.astype(dtype)
+
+
+def _kahan_err(acc, pos, cfg, n, torch, seed=SEED):
+    """Mean relative error of `acc` against the Kahan oracle on N_TARGETS
+    seeded targets."""
+    import numpy as np
+    from coulomb_oscillators_tpu_torch.ops import direct as D
+    from coulomb_oscillators_tpu_torch.ops.reductions import mean_rel_err
+    idx = torch.from_numpy(np.random.default_rng(seed).choice(
+        n, N_TARGETS, replace=False)).to(pos.device)
+    ref = D.direct_kahan_targets(pos[idx], pos, cfg.eps2, cfg.kappa(n))
+    return float(mean_rel_err(acc[idx], ref))
+
+
+def _phase_grid_engines(dev, torch):
+    """Phase 9: the uniform-grid engines on the card."""
+    import numpy as np
+    from coulomb_oscillators_tpu_torch import SimConfig, cli
+    from coulomb_oscillators_tpu_torch.ops.fmm import make_engine_object
+    from coulomb_oscillators_tpu_torch.simulate import Simulator
+    from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
+    from coulomb_oscillators_tpu_torch.utils import io as SIO
+
+    rows = {}
+    # the CLI's 2D default: fmm2 on the N=30001 KV beam, float32 on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = time.perf_counter()
+        _require(cli.main(["-dim", "2", "-n", str(N_CLI), "-iters", "100",
+                           "-steps", "100", "-o", tmp]) == 0, "cli 2d fmm2")
+        tc = time.perf_counter() - tc
+        want = ["out0_0.000500.bin", "out100_0.000500.bin"]
+        got = sorted(f for f in os.listdir(tmp) if f.endswith(".bin"))
+        _require(got == want, f"cli 2d fmm2 snapshots {got} == {want}")
+        for f in got:
+            _require(os.path.getsize(os.path.join(tmp, f))
+                     == 2 * N_CLI * 2 * 8, f"cli 2d fmm2 {f} float64 bytes")
+        sp, sv = SIO.read_state(os.path.join(tmp, want[-1]), dim=2,
+                                dtype=np.float64)
+        _require(np.isfinite(sp).all() and np.isfinite(sv).all(),
+                 "cli 2d fmm2 finite")
+    tt = time.perf_counter()
+    _require(cli.main(["-test", "-dim", "2", "-n", str(N_CLI)]) == 0,
+             "cli 2d fmm2 -test")
+    tt = time.perf_counter() - tt
+    print(f"cli 2d default (fmm2): 100 iterations in {tc:.3f} s "
+          f"({101 * N_CLI / tc / 1e6:.2f} M particle-steps/s incl. start-up "
+          f"and snapshots); -test (orders 1-10) {tt:.3f} s")
+    rows["cli_2d_fmm2_s"] = tc
+
+    def force(name, cfg, x, reps=3):
+        eng = make_engine_object(cfg, x.shape[0], name)
+        tb = time.perf_counter()
+        st = eng.build(x)
+        torch.cuda.synchronize()
+        tb = time.perf_counter() - tb
+        acc = eng.force(x, st)
+        ms = _cuda_ms(lambda: eng.force(x, st), reps, torch)
+        _require(bool(torch.isfinite(acc).all()) and acc.shape == x.shape,
+                 f"{name} finite force")
+        return eng, st, acc, tb, ms
+
+    # fmm3 / fmm3_traceless at N=1M: p=3 timed, p=5 against Kahan
+    x3 = torch.from_numpy(_uniform_box(N, 3)).to(dev)
+    accs = {}
+    for p in (3, 5):
+        for name in ("fmm3", "fmm3_traceless"):
+            cfg = SimConfig(fmm_order=p)
+            eng, _, acc, tb, ms = force(name, cfg, x3)
+            err = _kahan_err(acc, x3, cfg, N, torch) if p == 5 else None
+            accs[name, p] = acc
+            print(f"{name} N={N} uniform p={p}: L={eng.L} cap="
+                  f"{eng.cell_cap} build {tb:.3f} s force {ms:.2f} ms"
+                  + ("" if err is None else
+                     f"; mean rel err vs Kahan {err:.3e} (bound {OCT_TOL})"))
+            rows[f"{name}_p{p}_ms"] = ms
+            if err is not None:
+                _require(err <= OCT_TOL, f"{name} p=5 {err:.3e} <= {OCT_TOL}")
+        d, _ = _rel_dev(accs["fmm3_traceless", p], accs["fmm3", p])
+        print(f"fmm3 vs fmm3_traceless p={p}: {d:.3e} of max|a|")
+        _require(d <= 1e-5, f"symmetric vs traceless p={p} {d:.3e} <= 1e-5")
+    del accs
+    # appel at N=1M, 3D and 2D
+    for dim in (3, 2):
+        x = x3 if dim == 3 else torch.from_numpy(_uniform_box(N, 2)).to(dev)
+        cfg = SimConfig(dim=dim, omega0=(1.095, 1.0, 1.0)[:dim])
+        eng, _, acc, tb, ms = force("appel", cfg, x)
+        err = _kahan_err(acc, x, cfg, N, torch)
+        print(f"appel dim={dim} N={N} uniform: L={eng.L} cap={eng.cell_cap} "
+              f"build {tb:.3f} s force {ms:.2f} ms; mean rel err vs Kahan "
+              f"{err:.3e} (bound {APPEL_TOL})")
+        _require(err <= APPEL_TOL, f"appel dim={dim} {err:.3e}")
+        rows[f"appel{dim}d_ms"] = ms
+    # each engine on the card against itself on the CPU at N=100k
+    for name, dim in (("fmm2", 2), ("fmm3", 3), ("fmm3_traceless", 3),
+                      ("appel", 3), ("appel", 2)):
+        cfg = SimConfig(dim=dim, omega0=(1.095, 1.0, 1.0)[:dim])
+        xh = torch.from_numpy(_uniform_box(N_GRID, dim))
+        outs = []
+        for x in (xh, xh.to(dev)):
+            eng = make_engine_object(cfg, N_GRID, name)
+            outs.append(eng.force(x, eng.build(x)).cpu())
+        d, _ = _rel_dev(outs[1], outs[0])
+        print(f"{name} dim={dim} N={N_GRID}: card vs CPU {d:.3e} of max|a|")
+        _require(d <= 1e-5, f"{name} dim={dim} card vs CPU {d:.3e} <= 1e-5")
+    # a Simulator run of the traceless octree: 2 windows of 8 steps
+    cfg = SimConfig(fmm_order=3, tree_steps=8)
+    sim = Simulator(cfg, N, "fmm3_traceless")
+    try:
+        st = sim.init_acc(particle_state_from_numpy(
+            _uniform_box(N, 3), np.zeros((N, 3), np.float32), device=dev))
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        st = sim.run(st, 16)
+        torch.cuda.synchronize()
+        tw = time.perf_counter() - tw
+    finally:
+        sim.close()
+    _require(bool(torch.isfinite(st.pos).all()) and st.pos.shape == (N, 3),
+             "fmm3_traceless Simulator finite positions")
+    print(f"simulator fmm3_traceless N={N} p=3: 16 steps in {tw:.3f} s "
+          f"({tw / 16:.4f} s/step, {16 * N / tw / 1e6:.2f} M "
+          f"particle-steps/s); rebuilds {dict(sim.rebuilds)}")
+    rows["fmm3_traceless_s_per_step"] = tw / 16
+    return rows
+
+
+def _phase_kd_variants(dev, torch):
+    """Phase 10: the kd engine in 2D and in float64 on the card.  Returns
+    the float64 P2P kernel's row of the kernels line."""
+    import numpy as np
+    from coulomb_oscillators_tpu_torch import SimConfig
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR, KdFmmEngine
+    from coulomb_oscillators_tpu_torch.simulate import Simulator
+    from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
+
+    # fmm2_kd at ladder 2's size: N=100k, p=4, r=2, the 2D Gaussian beam
+    n2 = 100_000
+    cfg = SimConfig(dim=2, omega0=(1.095, 1.0), fmm_order=4, tree_radius=2.0)
+    u = tuple(w * x for w, x in zip(cfg.omega0, X_STD[:2]))
+    ph, vh = ID.init_gaussian(n2, X_STD[:2], u, dim=2, seed=SEED)
+    x = torch.from_numpy(ph).to(dev)
+    eng = KdFmmEngine(cfg, n2)
+    acc = eng.force(x, eng.build(x))
+    err = _kahan_err(acc, x, cfg, n2, torch)
+    _require(bool(torch.isfinite(acc).all()), "fmm2_kd finite force")
+    sim = Simulator(cfg, n2, "fmm2_kd")
+    try:
+        st = sim.init_acc(particle_state_from_numpy(ph, vh, device=dev))
+        st = sim.run(st, 2)
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        st = sim.run(st, 12)
+        torch.cuda.synchronize()
+        tw = time.perf_counter() - tw
+    finally:
+        sim.close()
+    _require(bool(torch.isfinite(st.pos).all()), "fmm2_kd Simulator finite")
+    print(f"fmm2_kd N={n2} p=4 r=2 (L={eng.L}, C={eng.st.C}): mean rel err "
+          f"vs Kahan {err:.3e} (bound {KD2_TOL}); Simulator 12 steps "
+          f"{tw:.3f} s ({tw / 12:.4f} s/step, {12 * n2 / tw / 1e6:.2f} M "
+          f"particle-steps/s)")
+    _require(err <= KD2_TOL, f"fmm2_kd {err:.3e} <= {KD2_TOL}")
+
+    # fmm3_kd in float64, Morton sort, N=1M on the uniform box
+    cfg = SimConfig(fmm_order=5, tree_radius=2.0, precision="float64")
+    ph = _uniform_box(N, 3, np.float64)
+    x = torch.from_numpy(ph).to(dev)
+    eng = KdFmmEngine(cfg, N, sort_mode="morton")
+    tb = time.perf_counter()
+    fs = eng.build(x)
+    torch.cuda.synchronize()
+    tb = time.perf_counter() - tb
+    ppad = eng.pad_array(x, fs, fill=FAR)
+    pblk = ppad.reshape(eng.G_blk, eng.C_blk, 3)
+
+    def kern():
+        return eng._stage_p2p(ppad, fs)
+
+    def plain():
+        return p2p_cuda.p2p_plain(pblk, fs.p2p_row_ptr, fs.p2p_col2d,
+                                  eng.nsub, cfg.eps2)
+
+    got = kern().reshape(pblk.shape)
+    ref = plain()
+    rel, mabs = _rel_dev(got, ref)
+    ms = _cuda_ms(kern, 5, torch)
+    plain_ms = _cuda_ms(plain, 1, torch)
+    acc = eng.force(x, fs)
+    err = _kahan_err(acc, x, cfg, N, torch)
+    print(f"p2p float64 N={N} morton L={eng.L} C={eng.st.C} build {tb:.3f} "
+          f"s: kernel vs plain {rel:.3e} of max|a| (max_abs {mabs:.3e}); "
+          f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}; force (p=5, r=2) "
+          f"mean rel err vs float64 Kahan {err:.3e} (bound {FORCE_TOL})")
+    _require(got.dtype == torch.float64 and acc.dtype == torch.float64,
+             "float64 outputs")
+    _require(rel <= F64_P2P_TOL, f"float64 P2P {rel:.3e} <= {F64_P2P_TOL}")
+    _require(err <= FORCE_TOL, f"float64 force {err:.3e} <= {FORCE_TOL}")
+    row = dict(max_rel_err=rel, max_abs_err=mabs,
+               max_abs_ref=float(ref.abs().max()), ms=ms, plain_ms=plain_ms)
+    del got, ref, ppad, pblk, acc, fs, eng
+
+    # the main path in float64: a Simulator with the device builder
+    windows = 3
+    sim = Simulator(cfg.replace(tree_async_build="device"), N)
+    try:
+        torch.cuda.synchronize()
+        p2p_cuda.launches = 0
+        st = sim.init_acc(particle_state_from_numpy(
+            ph, np.zeros_like(ph), device=dev))
+        torch.cuda.synchronize()
+        tw = time.perf_counter()
+        st = sim.run(st, 8 * windows)
+        torch.cuda.synchronize()
+        tw = time.perf_counter() - tw
+        row["launches"] = p2p_cuda.launches
+    finally:
+        sim.close()
+    evals = 1 + 8 * windows
+    print(f"simulator float64 N={N} tree_async_build=device: "
+          f"{8 * windows} steps in {tw:.3f} s ({tw / (8 * windows):.4f} "
+          f"s/step); rebuilds {dict(sim.rebuilds)}; p2p launches "
+          f"{row['launches']} = force evals {evals}")
+    _require(bool(torch.isfinite(st.pos).all()), "float64 Simulator finite")
+    _require(row["launches"] == evals, f"float64 P2P launches "
+             f"{row['launches']} == force evaluations {evals}")
+    _require(sim.rebuilds["adopt_device"] == windows - 2,
+             f"{windows - 2} adopted device rebuilds: {dict(sim.rebuilds)}")
+    return row
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -181,7 +442,7 @@ def main() -> int:
     from coulomb_oscillators_tpu_torch.models import oscillator as M
     from coulomb_oscillators_tpu_torch.ops import direct as D
     from coulomb_oscillators_tpu_torch.ops import energy as E
-    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.ops.fmm import kdtree, p2p_cuda
     from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import KdFmmEngine
     from coulomb_oscillators_tpu_torch.ops.reductions import mean_rel_err
     from coulomb_oscillators_tpu_torch.simulate import Simulator
@@ -219,6 +480,7 @@ def main() -> int:
 
     # ---- 3. P2P kernel vs plain ----------------------------------------
     t0 = time.perf_counter()
+    kdtree.raw_traversals = 0
     cfg = SimConfig(fmm_order=6, tree_radius=1.67)
     u_std = tuple(w * x for w, x in zip(cfg.omega0, X_STD))
     pos_h, vel_h = ID.init_gaussian(N, X_STD, u_std, seed=SEED)
@@ -309,6 +571,7 @@ def main() -> int:
           f"last rebuild breakdown {sim._fmm.last_build_times}; "
           f"p2p launches {p2p_launches} = force evals {evals}")
     del sim, state, final, pos
+    raw_main = kdtree.raw_traversals
     _phase("simulator", t0)
 
     # ---- 6. direct kernel vs plain and Kahan ---------------------------
@@ -474,6 +737,24 @@ def main() -> int:
     _require(pe <= POT_TOL, f"potential {pe:.3e} <= {POT_TOL}")
     _phase("energy", t0)
 
+    # ---- 9. uniform-grid engines ---------------------------------------
+    t0 = time.perf_counter()
+    _phase_grid_engines(dev, torch)
+    _phase("grid engines", t0)
+
+    # ---- 10. kd in 2D and float64 --------------------------------------
+    t0 = time.perf_counter()
+    f64_row = _phase_kd_variants(dev, torch)
+    _phase("kd 2D and float64", t0)
+
+    # ---- 11. the native library was used -------------------------------
+    t0 = time.perf_counter()
+    print(f"native: co_native built in {native.build_seconds} s; numpy "
+          f"traversals in phases 3-5: {raw_main}")
+    _require(native._lib is not None and raw_main == 0,
+             "the N=1M kd builds of phases 3-5 went through co_native")
+    _phase("native", t0)
+
     row, drow = p2p_rows[0], direct_rows[3]
     print(json.dumps({"kernels": [
         {"name": "p2p", "route": "cuda",
@@ -484,6 +765,14 @@ def main() -> int:
          "max_abs_ref": row["max_abs_ref"],
          "max_rel_err": row["max_rel_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "cases": p2p_rows},
+        {"name": "p2p_float64", "route": "cuda",
+         "source": "coulomb_oscillators_tpu_torch/csrc/p2p.cu",
+         "replaces": "coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py:52",
+         "launches": f64_row["launches"],
+         "max_abs_err": f64_row["max_abs_err"],
+         "max_abs_ref": f64_row["max_abs_ref"],
+         "max_rel_err": f64_row["max_rel_err"], "ms": f64_row["ms"],
+         "plain_ms": f64_row["plain_ms"]},
         {"name": "direct", "route": "cuda",
          "source": "coulomb_oscillators_tpu_torch/csrc/direct.cu",
          "replaces": "coulomb_oscillators_tpu/ops/direct.py:161",

@@ -7,13 +7,13 @@ Twin of ``coulomb_oscillators_tpu/cli.py`` (reference CLI `nbco3 [options]
 
 Devices: the run goes to the CUDA device cuda:0, or to the CPU with
 ``-cpu``; without a CUDA device and without ``-cpu`` it exits non-zero and
-never carries on on the CPU.  The 2D driver (main.cu, reached via -dim 2)
-computes in float64 only with ``-cpu``, as the twin does on a CPU backend;
-on the card it computes in float32.  2D snapshots are float64 and 3D ones
-float32 either way.
+never carries on on the CPU.  The 2D program (main.cu, reached via -dim 2,
+default engine ``fmm2``) computes in float64 only with ``-cpu``, as the
+twin does on a CPU backend; on the card it computes in float32.  2D
+snapshots are float64 and 3D ones float32 either way.
 
-Not ported (ROADMAP.md): ``-chips`` (queue 1, item 10) and the FMM engines
-other than ``fmm3_kd``; the twin's JAX compile cache has no counterpart.
+Not ported (ROADMAP.md): ``-chips`` (queue 1, item 10); the twin's JAX
+compile cache has no counterpart.
 """
 
 from __future__ import annotations
@@ -80,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-u", dest="u_std", type=float, nargs=3, default=None,
                    help="velocity std.dev. (ignored with [input])")
     p.add_argument("-engine", dest="engine", default=None,
-                   help="force engine: direct | direct_ref | fmm3_kd "
+                   help="force engine: direct | direct_ref | fmm3_kd | fmm3 "
+                        "| fmm3_traceless | fmm2 | fmm2_kd | appel "
                         "(default: kd FMM, matching the reference driver)")
     p.add_argument("-dim", dest="dim", type=int, default=3, choices=[2, 3])
     p.add_argument("-seed", dest="seed", type=int, default=None,
@@ -252,8 +253,8 @@ def main(argv: Optional[list] = None) -> int:
 
 
 def default_engine(config) -> str:
-    """Default engine mirrors main3.cu (kd-tree FMM); dim 2 names the
-    twin's default, which raises here until it is ported."""
+    """Default engine mirrors the reference programs: the kd-tree FMM in 3D
+    (main3.cu), the quadtree FMM in 2D (main.cu)."""
     return "fmm3_kd" if config.dim == 3 else "fmm2"
 
 

@@ -33,7 +33,7 @@ class SimConfig:
 
     # --- core numerics -----------------------------------------------------
     dim: int = 3                  # constants.cuh:26 (DIM)
-    precision: str = "float32"    # constants.cuh:22 (SCAL); "float64": engines of the port are float32 for now
+    precision: str = "float32"    # constants.cuh:22 (SCAL): "float32" or "float64"
     eps: float = 1e-9             # softening; EPS2 = eps**2 (constants.cuh:39, main3.cu:283)
 
     # --- physics -----------------------------------------------------------

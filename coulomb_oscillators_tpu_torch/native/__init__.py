@@ -10,8 +10,11 @@ C++.  Differences from the twin:
 
   * the library is built into the port's git-ignored ``build/`` directory
     at the repository root, never into the JAX package's directory;
-  * a library that cannot be built or loaded raises — there is no numpy
-    fallback (the twin's ``_traverse_raw`` path is not ported yet).
+  * the functions raise when the library cannot be built or loaded; the
+    twin returns None from them.  :func:`available` says whether it can
+    be, and the kd engine asks it before taking the host fallback (the
+    device builders and the numpy ``_traverse_raw``), as the twin's
+    callers test for None.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ SRC = os.path.join(_REPO, "coulomb_oscillators_tpu", "native", "co_native.cpp")
 _lock = threading.Lock()
 _lib = None
 build_seconds = None       # wall time of this process's build (None: cached)
+build_error = None         # why the library could not be built, if it failed
 
 
 def build_library(src: str, name: str, cmd: list):
@@ -138,6 +142,18 @@ def get_lib():
         lib.co_traverse_fine.restype = ctypes.c_int32
         _lib = lib
         return lib
+
+
+def available() -> bool:
+    """Whether the native library builds and loads here; the first call
+    tries the build, and a failure is kept in ``build_error``."""
+    global build_error
+    if _lib is None and build_error is None:
+        try:
+            get_lib()
+        except (RuntimeError, OSError) as e:
+            build_error = str(e)
+    return _lib is not None
 
 
 def _ptr(a: np.ndarray, ctype):

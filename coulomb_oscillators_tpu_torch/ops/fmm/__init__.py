@@ -1,32 +1,31 @@
 """Fast Multipole Method force engines of the port.
 
-Twin of ``coulomb_oscillators_tpu/ops/fmm/__init__.py``.  Only the kd-tree
-engine in dim 3 ("fmm3_kd", or "fmm_kd" with a dim-3 config) is ported;
-every other engine name raises NotImplementedError naming its ROADMAP.md
-item.
+Twin of ``coulomb_oscillators_tpu/ops/fmm/__init__.py``, with the same
+registry:
+  * "fmm3_kd" / "fmm2_kd" (and "fmm_kd", dim from the config) — kd-tree FMM
+    with dual-tree MAC traversal, the production path (kdtree.py);
+  * "fmm3" / "fmm3_traceless" / "fmm2" / "fmm2_traceless" — uniform-grid
+    octree / quadtree FMM (octree.py);
+  * "appel" — the monopole tree code (appel.py).
 """
 
+from coulomb_oscillators_tpu_torch.ops.fmm.appel import AppelEngine
 from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import KdFmmEngine
+from coulomb_oscillators_tpu_torch.ops.fmm.octree import OctreeFmmEngine
 
-_KD_NAMES = ("fmm3_kd", "fmm_kd")
-_NOT_PORTED = {
-    "fmm2_kd": "queue 1, item 9 (fmm2_kd and float64)",
-    "fmm3": "queue 1, item 9 (octree engines)",
-    "fmm2": "queue 1, item 9 (octree engines)",
-    "fmm3_traceless": "queue 1, item 9 (octree engines)",
-    "fmm2_traceless": "queue 1, item 9 (octree engines)",
-    "appel": "queue 1, item 9 (Appel engine)",
-}
+_KD_NAMES = ("fmm3_kd", "fmm2_kd", "fmm_kd")
+_OCT_NAMES = ("fmm3", "fmm2", "fmm3_traceless", "fmm2_traceless")
 
 
 def make_engine_object(config, n, name: str):
     """Engine instance for the simulator (build/force API)."""
     if name in _KD_NAMES:
         return KdFmmEngine(config, n)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {name!r} is not ported yet: ROADMAP.md "
-            f"{_NOT_PORTED[name]}")
+    if name == "appel":
+        return AppelEngine(config, n)
+    if name in _OCT_NAMES:
+        storage = "traceless" if name.endswith("_traceless") else "symmetric"
+        return OctreeFmmEngine(config, n, multipole_storage=storage)
     raise ValueError(f"unknown FMM engine {name!r}")
 
 

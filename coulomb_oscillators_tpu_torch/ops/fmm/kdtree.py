@@ -1,24 +1,31 @@
 """kd-tree FMM force engine on tensors.
 
 Twin of ``coulomb_oscillators_tpu/ops/fmm/kdtree.py`` (reference
-capability: fmm_cart3_kdtree.cuh), dim 3, float32.  The design is the
-twin's: equal-count median splits make every segment boundary static, so
-leaves pad to a fixed capacity C; the native C++ library builds the kd
-order and runs the dual-tree MAC traversal on the host at rebuild time; the
-near field is resolved at sub-leaf granularity and computed on directed
-(target sub-leaf) x (source block) tiles with packed lane-group masks.
+capability: fmm_cart3_kdtree.cuh), dims 2 and 3, float32 and float64.  The
+design is the twin's: equal-count median splits make every segment
+boundary static, so leaves pad to a fixed capacity C; the tree order comes
+from the native C++ kd builder on the host or from a device builder (Morton
+or per-level kd sort), the dual-tree MAC traversal runs on the host at
+rebuild time (the native library, or the numpy ``_traverse_raw`` where the
+library is absent); the near field is resolved at sub-leaf granularity and
+computed on directed (target sub-leaf) x (source block) tiles with packed
+lane-group masks.
 
-One layout on every device: C is always padded to the reference's lane
-quantum ``max(128 >> sub_depth, 8)`` and the per-sub-leaf CSR
-(``p2p_row_ptr``, ``p2p_col2d``) is always built, so the integer state
+One layout on every device and in both dims: C is always padded to the
+reference's lane quantum ``max(128 >> sub_depth, 8)`` and the per-sub-leaf
+CSR (``p2p_row_ptr``, ``p2p_col2d``) is always built, so the integer state
 equals the reference engine's ``use_pallas=True`` build and the CPU and
-CUDA paths never differ in layout.  On a CUDA tensor the P2P stage runs the
-hand-written kernel (``p2p_cuda``); the far field is plain PyTorch.
+CUDA paths never differ in layout.  In dim 3 a CUDA tensor's P2P stage runs
+the hand-written kernel (``p2p_cuda``, float32 or float64).  In dim 2 the
+near field is plain PyTorch on every device, as in the reference, whose
+engine never gives dim 2 to its kernel (the FAR pads' 1/r^2 weight does
+not underflow, and its kernel is dim 3 only).  The far field is plain
+PyTorch.  Geometry stays in the working dtype; the native builder and
+traversal take float32 copies, as in the reference.
 
-Not ported here (see ROADMAP.md): the numpy ``_traverse_raw`` fallback and
-the device Morton / kd builders, dim 2, float64, and the
-reference's TPU-only workarounds (flattened P2P operand, optimization
-barriers, the three-program force split, stored-fold M2L).
+Not ported (TPU-only workarounds, see ROADMAP.md): the flattened P2P
+operand, optimization barriers, the three-program force split and the
+stored-fold M2L.
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import os
+import threading
 import time
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -189,6 +198,185 @@ def _build_col2d(p2p: np.ndarray, row_ptr: np.ndarray, G: int, Gblk: int,
     return col[:G]
 
 
+# --------------------------------------------------------------------------- #
+# Device tree build (sorting + geometry)
+# --------------------------------------------------------------------------- #
+
+SORT_MODES = ("auto", "kd_native", "morton", "kd_device")
+
+# numpy traversals run (the host fallback where the native library is
+# absent); a run that must show it used the native library reads this
+raw_traversals = 0
+_raw_lock = threading.Lock()
+
+
+@functools.lru_cache(maxsize=8)
+def _segments(n: int, L: int, device: torch.device):
+    """Per level: (segment id of each sorted slot [n] int64, segment
+    particle counts [2^l] float32) on `device`."""
+    st = _static_structure(n, L)
+    return [(torch.as_tensor(st.seg[l].astype(np.int64), device=device),
+             torch.as_tensor(np.diff(st.beg[l]).astype(np.float32),
+                             device=device)) for l in range(L + 1)]
+
+
+def _level_geometry(pos_s: torch.Tensor, seg: torch.Tensor,
+                    cnt: torch.Tensor):
+    """Per-segment (mean, lam, min, max) of sorted positions; segments are
+    contiguous and non-empty."""
+    m, dim = cnt.shape[0], pos_s.shape[1]
+    idx = seg[:, None].expand(-1, dim)
+    mn = pos_s.new_empty(m, dim).scatter_reduce_(0, idx, pos_s, "amin",
+                                                 include_self=False)
+    mx = pos_s.new_empty(m, dim).scatter_reduce_(0, idx, pos_s, "amax",
+                                                 include_self=False)
+    mean = pos_s.new_zeros(m, dim).index_add_(0, seg, pos_s) / cnt[:, None]
+    lam = torch.clamp(0.5 * torch.linalg.vector_norm(mx - mn, dim=1),
+                      min=1e-30)
+    return mean, lam, mn, mx
+
+
+def _heap_geometry(levels):
+    """Concatenate per-level (mean, lam, min, max) into the heap arrays
+    (center, lam, lb, rb)."""
+    return tuple(torch.cat(parts, dim=0) for parts in zip(*levels))
+
+
+def _morton_key(pos: torch.Tensor, bits: int, dim: int) -> torch.Tensor:
+    """Morton (Z-order) keys from box-normalized coordinates (the
+    reference's uint32 keys, held in int64)."""
+    mn = pos.amin(dim=0)
+    mx = pos.amax(dim=0)
+    extent = torch.clamp(mx - mn, min=1e-30)
+    q = ((pos - mn) / extent * (1 << bits)).to(torch.int64).clamp(
+        0, (1 << bits) - 1)                                 # [n, dim]
+    key = torch.zeros(pos.shape[0], dtype=torch.int64, device=pos.device)
+    for b in range(bits):
+        for a in range(dim):
+            key = key | (((q[:, a] >> b) & 1) << (b * dim + a))
+    return key
+
+
+def _build_device_morton(pos: torch.Tensor, n: int, L: int, dim: int):
+    """One stable Morton sort; the tree is the equal-count split of the
+    sorted order.  The MAC uses the true per-node bounds computed
+    afterwards, so only pair counts change against the exact kd order.
+    Returns (perm int32, center, lam, lb, rb) on the device of `pos`."""
+    key = _morton_key(pos, 10 if dim == 3 else 16, dim)
+    perm = torch.argsort(key, stable=True)
+    pos_s = pos[perm]
+    geo = [_level_geometry(pos_s, seg, cnt)
+           for seg, cnt in _segments(n, L, pos.device)]
+    return (perm.to(torch.int32),) + _heap_geometry(geo)
+
+
+def _build_device(pos: torch.Tensor, n: int, L: int, dim: int):
+    """The exact equal-count kd order on the device: per level, sort every
+    segment by its widest axis — a (segment, coordinate) two-key sort, done
+    as a stable sort by coordinate and then by segment.  Returns (perm
+    int32, center, lam, lb, rb).  Ties may order differently from the
+    reference's unstable sort; a leaf holds the same set of particles
+    either way."""
+    pos_s = pos
+    perm = torch.arange(n, device=pos.device)
+    geo = []
+    for l, (seg, cnt) in enumerate(_segments(n, L, pos.device)):
+        geo.append(_level_geometry(pos_s, seg, cnt))
+        if l == L:
+            break
+        mn, mx = geo[-1][2], geo[-1][3]
+        splitdim = torch.argmax(mx - mn, dim=1)            # [2^l]
+        key = pos_s.gather(1, splitdim[seg][:, None])[:, 0]
+        order = torch.argsort(key, stable=True)
+        order = order[torch.argsort(seg[order], stable=True)]
+        pos_s = pos_s[order]
+        perm = perm[order]
+    return (perm.to(torch.int32),) + _heap_geometry(geo)
+
+
+# --------------------------------------------------------------------------- #
+# Host dual-tree traversal (numpy copy of the reference's)
+# --------------------------------------------------------------------------- #
+
+
+def _traverse_raw(center: np.ndarray, lb: np.ndarray, rb: np.ndarray,
+                  mult: np.ndarray, L: int, n: int, p: int,
+                  radius: float, mult_floor: int = 1,
+                  boost_from: Optional[int] = None, sub_boost: float = 1.0):
+    """Vectorized dual-tree traversal (reference :569-611 semantics).
+
+    Returns (m2l [K,2] unordered heap pairs, p2p [Q,2] unordered
+    LEAF-RELATIVE pairs incl. self pairs) — the native co_traverse's
+    format.  mult_floor: Mf uses max(mult, mult_floor).  Nodes at heap
+    index >= boost_from accept with radius*sub_boost (stricter)."""
+    leaf0 = _heap_off(L)
+    M = center.shape[0]
+    sz = np.sum((rb - lb) ** 2, axis=1)                      # squared diagonal
+    mult = np.maximum(mult, np.int32(mult_floor))
+    # per-node pair value (rad_i * (mult_i/n)^expo)^2; the pair acceptance
+    # takes the max over the two nodes (same as the native pm2 table)
+    expo = 1.0 / (3 * p + 6)
+    rad = np.full(M, radius, dtype=np.float64)
+    if boost_from is not None and sub_boost != 1.0:
+        rad[boost_from:] = radius * sub_boost
+    pm2 = (rad * (mult[:M] / float(n)) ** expo) ** 2
+
+    frontier = np.array([[0, 0]], dtype=np.int64)
+    m2l = []
+    p2p = []
+    while frontier.size:
+        i, j = frontier[:, 0], frontier[:, 1]
+        d = center[i] - center[j]
+        dist2 = np.sum(d * d, axis=1)
+        parM2 = np.maximum(pm2[i], pm2[j])
+        adm = (parM2 * np.maximum(sz[i], sz[j]) < dist2) & (i != j)
+        if np.any(adm):
+            m2l.append(frontier[adm])
+        rest = frontier[~adm]
+        if rest.size == 0:
+            break
+        i, j = rest[:, 0], rest[:, 1]
+        both = (i >= leaf0) & (j >= leaf0)
+        if np.any(both):
+            p2p.append(rest[both])
+        rest = rest[~both]
+        if rest.size == 0:
+            break
+        # self pairs split into (l,l), (l,r), (r,r) so each unordered pair
+        # is emitted exactly once; non-self pairs split the larger non-leaf
+        # side only
+        selfp = rest[:, 0] == rest[:, 1]
+        sp = rest[selfp]
+        rest = rest[~selfp]
+        i, j = rest[:, 0], rest[:, 1]
+        leaf_i = i >= leaf0
+        leaf_j = j >= leaf0
+        split_i = (~leaf_i) & (leaf_j | (sz[i] >= sz[j]))
+        si = rest[split_i]
+        sj = rest[~split_i]
+        nxt = []
+        if sp.size:
+            a = sp[:, 0]
+            l, r = 2 * a + 1, 2 * a + 2
+            nxt.append(np.stack([l, l], axis=1))
+            nxt.append(np.stack([l, r], axis=1))
+            nxt.append(np.stack([r, r], axis=1))
+        if si.size:
+            a, b = si[:, 0], si[:, 1]
+            nxt.append(np.stack([2 * a + 1, b], axis=1))
+            nxt.append(np.stack([2 * a + 2, b], axis=1))
+        if sj.size:
+            a, b = sj[:, 0], sj[:, 1]
+            nxt.append(np.stack([a, 2 * b + 1], axis=1))
+            nxt.append(np.stack([a, 2 * b + 2], axis=1))
+        frontier = (np.concatenate(nxt, axis=0) if nxt
+                    else np.zeros((0, 2), np.int64))
+
+    m2l = np.concatenate(m2l, axis=0) if m2l else np.zeros((0, 2), np.int64)
+    p2p = np.concatenate(p2p, axis=0) if p2p else np.zeros((0, 2), np.int64)
+    return m2l, p2p - leaf0
+
+
 class _DeviceStatic:
     """The static structure's index tensors on one device."""
 
@@ -204,26 +392,32 @@ class _DeviceStatic:
 
 
 class KdFmmEngine:
-    """kd-tree FMM engine for a fixed particle count (dim 3, float32).
+    """kd-tree FMM engine for a fixed particle count (dims 2 and 3,
+    float32 and float64).
 
     Usage:
         eng = KdFmmEngine(config, n)
         fstate = eng.build(pos)          # at t=0 and every tree_steps steps
         acc = eng.force(pos, fstate)
+
+    sort_mode (the ``CO_SORT_MODE`` environment variable overrides it, as
+    in the reference): "auto" builds the exact kd order with the native
+    library where it is available and with the device Morton sort where
+    not; "kd_native", "morton" and "kd_device" force a builder
+    ("kd_native" falls back to Morton without the library, as the
+    reference does).
     """
 
-    def __init__(self, config: SimConfig, n: int, sub_depth: int = 2):
-        if config.dim != 3:
-            raise NotImplementedError(
-                "the port's kd engine is dim 3 only; fmm2_kd is a "
-                "ROADMAP.md item (queue 1, item 9)")
-        if config.precision != "float32":
-            raise NotImplementedError(
-                "the port's kd engine is float32 only; float64 is a "
-                "ROADMAP.md item (queue 1, item 9)")
+    def __init__(self, config: SimConfig, n: int, sub_depth: int = 2,
+                 sort_mode: str = "auto"):
         self.config = config
         self.n = n
         self.dim = config.dim
+        self.dtype = config.dtype
+        self.sort_mode = os.environ.get("CO_SORT_MODE", sort_mode)
+        if self.sort_mode not in SORT_MODES:
+            raise ValueError(f"sort_mode must be one of {SORT_MODES}, got "
+                             f"{self.sort_mode!r}")
         # p=1 is monopole-only (PM=0), matching the reference's fmm_order=1
         self.p = max(config.fmm_order, 1)
         self.L = auto_level(n, self.p, config.dens_inhom, config.tree_L,
@@ -287,11 +481,36 @@ class KdFmmEngine:
         """[G, C] validity of padded slots."""
         return self.dev(device).mask3
 
-    # ---------------- build (host) ----------------
+    # ---------------- build ----------------
     def build(self, pos: torch.Tensor) -> FmmState:
-        """Tree (re)build: native kd sort + geometry + traversal on the
-        host, lists uploaded to the device of `pos`."""
-        return self.adopt(self.build_host(pos), pos.device)
+        """Tree (re)build by `sort_mode`: the native kd sort, geometry and
+        traversal on the host, or a device builder and the host traversal;
+        lists uploaded to the device of `pos`."""
+        if self.sort_mode in ("auto", "kd_native") and native.available():
+            return self.adopt(self.build_host(pos), pos.device)
+        return self.adopt(self.build_device_async(pos), pos.device)
+
+    def build_device_async(self, pos: torch.Tensor) -> tuple:
+        """Rebuild with a device builder (the Morton sort, or the exact kd
+        sort for sort_mode="kd_device"): the O(N) work runs on the device of
+        `pos`, only the node geometry crosses to the host for the MAC
+        traversal, and perm/inv never leave the device.  Returns the
+        ingredients for :meth:`adopt`."""
+        bt = {}
+        t0 = time.perf_counter()
+        fn = (_build_device if self.sort_mode == "kd_device"
+              else _build_device_morton)
+        perm, center, lam, lb, rb = fn(pos.detach(), self.n, self.L,
+                                       self.dim)
+        c_h, lb_h, rb_h = (x.cpu().numpy() for x in (center, lb, rb))
+        bt["device_build"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m2l, p2p = self._traverse(c_h, lb_h, rb_h)
+        bt["traverse"] = time.perf_counter() - t0
+        inv = torch.empty_like(perm)
+        inv[perm.long()] = torch.arange(self.n, dtype=perm.dtype,
+                                        device=perm.device)
+        return (perm, inv, center, lam, m2l, p2p, bt)
 
     def build_host(self, pos: torch.Tensor) -> tuple:
         """The whole host side of a rebuild from original-order positions;
@@ -335,20 +554,35 @@ class KdFmmEngine:
                                     dict(bt), device)
 
     def _traverse(self, c_h, lb_h, rb_h):
-        """Native dual-granularity traversal with the temporal MAC slack
-        (node bounds inflated by `stale_margin_abs`, a scalar or a per-axis
-        vector, so frozen lists stay admissible for the reuse window).
+        """Dual-granularity traversal with the temporal MAC slack (node
+        bounds inflated by `stale_margin_abs`, a scalar or a per-axis
+        vector, so frozen lists stay admissible for the reuse window): the
+        native single pass, or without the native library the numpy
+        ``_traverse_raw`` and :meth:`_fine_lists`, as in the reference.
         Returns (m2l_directed, near), target-sorted."""
+        global raw_traversals
+        L, S = self.L, self.sub_depth
         sm = self.stale_margin_abs
         if np.any(np.asarray(sm) > 0.0):
             lb_h = (lb_h - sm).astype(lb_h.dtype)
             rb_h = (rb_h + sm).astype(rb_h.dtype)
+        if not native.available():
+            with _raw_lock:
+                raw_traversals += 1
+            m2l_u, p2p_u = _traverse_raw(
+                c_h, lb_h, rb_h, self.st.mult, L, self.n, self.p,
+                float(self.config.tree_radius),
+                mult_floor=self.mac_mult_floor,
+                boost_from=_heap_off(L - S + 1) if S else None,
+                sub_boost=self.mac_sub_boost)
+            near, m2l_d = self._fine_lists(m2l_u, p2p_u)
+            return m2l_d, near
         # seed capacities from the previous traversal
         last = getattr(self, "last_raw_counts", None) or {}
         caps = {k: max(1 << 20, int(last.get(k, 0) * 1.3))
                 for k in ("m2l", "near")}
         m2l_d, near = native.traverse_fine(
-            c_h, lb_h, rb_h, self.st.mult, self.L, self.sub_depth, self.n,
+            c_h, lb_h, rb_h, self.st.mult, L, S, self.n,
             self.dim, self.p, float(self.config.tree_radius),
             self.config.coll, mult_floor=self.mac_mult_floor,
             sub_boost=self.mac_sub_boost,
@@ -356,6 +590,41 @@ class KdFmmEngine:
         self.last_raw_counts = {"m2l": int(m2l_d.shape[0]),
                                 "near": int(near.shape[0])}
         return m2l_d, near
+
+    def _fine_lists(self, m2l_u: np.ndarray, p2p_dir: np.ndarray):
+        """Dual-granularity lists from the numpy traversal's output (the
+        native library builds the same lists in its single pass).
+
+        Input: m2l_u [K, 2] unordered admissible heap pairs; p2p_dir [Q, 2]
+        unordered near sub-leaf pairs (leaf-relative, self included).
+        Output: near [Qb, 2] directed (target sub-leaf, packed source
+        block) pairs — blk | mask << mask_shift, one mask bit per near
+        sub-leaf of the block — and m2l [Kd, 2] directed (t <- s) entries,
+        both directions of every pair; both target-sorted."""
+        S = self.sub_depth
+        G_blk = self.G_blk
+        shift = self.mask_shift
+        if p2p_dir.size and self.config.coll:
+            a = p2p_dir[:, 0].astype(np.int64)
+            b = p2p_dir[:, 1].astype(np.int64)
+            t = np.concatenate([a, b])
+            s = np.concatenate([b, a])
+            key = t * G_blk + (s >> S)
+            bit = np.int64(1) << (s & ((1 << S) - 1))
+            order = np.argsort(key, kind="stable")
+            key, bit = key[order], bit[order]
+            uniq, start = np.unique(key, return_index=True)
+            mask = np.bitwise_or.reduceat(bit, start)
+            packed = ((uniq % G_blk) | (mask << shift))
+            # int32 wrap-around semantics (the mask may hold the sign bit)
+            packed = packed.astype(np.uint32).view(np.int32).astype(np.int64)
+            near = np.stack([uniq // G_blk, packed], axis=1)
+        else:
+            near = np.zeros((0, 2), np.int64)
+        if m2l_u.size == 0:
+            return near, np.zeros((0, 2), np.int64)
+        m2l_d = np.concatenate([m2l_u, m2l_u[:, ::-1]], axis=0)
+        return near, m2l_d[np.argsort(m2l_d[:, 0], kind="stable")]
 
     def _lists_to_state(self, perm, inv_perm, center, lam, m2l, p2p, bt,
                         device) -> FmmState:
@@ -415,7 +684,8 @@ class KdFmmEngine:
         t0 = time.perf_counter()
         out = FmmState(
             perm=_upload(perm, device), inv_perm=_upload(inv_perm, device),
-            center=_upload(center, device), lam=_upload(lam, device),
+            center=_upload(center, device).to(self.dtype),
+            lam=_upload(lam, device).to(self.dtype),
             p2p_tgt=_upload(p2p_t, device), p2p_src=_upload(p2p_s, device),
             p2p_valid=_upload(p2p_v, device),
             m2l_tgt=_upload(m2l_t, device), m2l_src=_upload(m2l_s, device),
@@ -441,8 +711,8 @@ class KdFmmEngine:
         L, dim = self.L, self.dim
         G = 1 << L
         M = (1 << (L + 1)) - 1
-        mn = np.empty((M, dim), np.float32)
-        mx = np.empty((M, dim), np.float32)
+        mn = np.empty((M, dim), h.dtype)
+        mx = np.empty((M, dim), h.dtype)
         sm = np.empty((M, dim), np.float64)
         mn[G - 1:] = h[0]
         mx[G - 1:] = h[1]
@@ -456,9 +726,9 @@ class KdFmmEngine:
             sm[off:off + m] = (sm[offc:offc + 2 * m:2]
                                + sm[offc + 1:offc + 2 * m:2])
         cnt = self.st.mult.astype(np.float64)[:, None]
-        center = (sm / cnt).astype(np.float32)
+        center = (sm / cnt).astype(h.dtype)
         lam = np.maximum(0.5 * np.linalg.norm(mx - mn, axis=1),
-                         1e-30).astype(np.float32)
+                         1e-30).astype(h.dtype)
         bt["geom_host"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         m2l, p2p = self._traverse(center, mn, mx)
@@ -543,50 +813,35 @@ class KdFmmEngine:
         """Coulomb acceleration on padded blocks [G, C, dim], kappa-scaled
         (twin of ``force_padded_in_jit``).  Pad slots (pos = FAR) receive
         ~0; mask before integrating."""
-        t = self.tables
-        G, dim = self.G_sub, self.dim
         V, leaf_local, leafl = self._leaf_expansions(ppad, fs)
-        kappa = float(np.float32(self.config.kappa(self.n)))
-
-        # L2P: fold the derivative table into the per-leaf locals first,
-        # W[g, a, k] = sum_j D[a, j, k] Lf[g, j], then contract against the
-        # particle monomials
-        Lf = mop.expand_L(t, leaf_local)                    # [G, S_Lf]
-        W = (Lf @ self._l2p_matrix(ppad.dtype, ppad.device)).reshape(
-            G, dim, t.S_Lf)
-        far = -torch.bmm(V, W.transpose(1, 2)) / leafl[:, None, None]
+        Lf = mop.expand_L(self.tables, leaf_local)          # [G, S_Lf]
+        far = mop.l2p_field_cols(self.tables, Lf, V, leafl)
         far = far * self.dev(ppad.device).mask3[..., None]
-
         near = self._stage_p2p(ppad, fs)
-        return (far + near) * kappa
+        return (far + near) * self._kappa(ppad.dtype)
+
+    def _kappa(self, dtype) -> float:
+        """kappa rounded to the working dtype (the reference's
+        dtype.type(kappa))."""
+        return torch.tensor(self.config.kappa(self.n), dtype=dtype).item()
 
     def _leaf_expansions(self, ppad: torch.Tensor, fs: FmmState):
         """The far-field pipeline up to the leaf locals: leaf-frame
         monomials V [G, C, S_Lf] (0 at pads), P2M, M2M up, M2L, L2L down.
         Returns (V, leaf locals [G, S_Lt], leaf length scales [G])."""
         t = self.tables
-        G, dim = self.G_sub, self.dim
+        G = self.G_sub
         leaf0 = _heap_off(self.L)
-        d = self.dev(ppad.device)
+        mask3 = self.dev(ppad.device).mask3
 
-        # leaf frames: normalized offsets, 0 at pads
+        # leaf frames: normalized offsets, 0 at pads; layouts nest, so the
+        # P2M reads its slots from the L2P monomials
         leafc = fs.center[leaf0:leaf0 + G]
         leafl = fs.lam[leaf0:leaf0 + G]
         e = (ppad - leafc[:, None, :]) / leafl[:, None, None]
-        e = torch.where(d.mask3[..., None], e, 0.0)
-        V = mop.eval_monomial_cols(e, t.PL, dim)           # [G, C, S_Lf]
-
-        # P2M: masked offsets are 0, so only the order-0 column needs the
-        # static leaf count; layouts nest, so m_slots index V's layout
-        slots = torch.as_tensor(t.m_slots[1:].astype(np.int64),
-                                device=ppad.device)
-        coef = torch.as_tensor(t.p2m_coef[1:], dtype=ppad.dtype,
-                               device=ppad.device)
-        counts = d.multf[leaf0:][:, None]
-        mpole_leaf = torch.cat(
-            [counts, V.index_select(2, slots).sum(dim=1) * coef], dim=1)
-
-        mpole_heap = self.m2m_up(mpole_leaf, fs)
+        e = torch.where(mask3[..., None], e, 0.0)
+        V = mop.eval_monomial_cols(e, t.PL, self.dim)       # [G, C, S_Lf]
+        mpole_heap = self.m2m_up(mop.p2m_from_cols(t, V, mask3), fs)
         local_heap = self._stage_m2l(mpole_heap, fs)
         return V, self.l2l_down(local_heap, fs), leafl
 
@@ -594,12 +849,12 @@ class KdFmmEngine:
         """Per-particle softened Coulomb potential (kappa-scaled), original
         order [n] (twin of ``potential``): the far field from the leaf
         local expansions (which include the monopole term), the near field
-        over the P2P list as plain PyTorch.  The self pair is dropped
-        inside the near-field sum, not subtracted after it as in the twin:
-        phi(0) = 1/eps = 1e9 would swamp a float32 row sum."""
+        over the P2P list as plain PyTorch.  Self pairs and pad sources
+        are dropped inside the near-field sum: the twin subtracts the self
+        term phi(0) (1/eps = 1e9 in 3D, which would swamp a float32 row
+        sum) after it, and in 2D its sum also takes the pads' -log(FAR)."""
         t = self.tables
         G, C = self.G_sub, self.st.C
-        kappa = float(np.float32(self.config.kappa(self.n)))
         ppad = self.pad_array(pos, fs, fill=FAR)
         V, leaf_local, _ = self._leaf_expansions(ppad, fs)
         Lf = mop.expand_L(t, leaf_local)                    # [G, S_Lf]
@@ -607,15 +862,15 @@ class KdFmmEngine:
                                 device=pos.device)
         pot_far = torch.sum(V * (Lf * multv)[:, None, :], dim=2)   # [G, C]
         pot = (pot_far + self._potential_near(ppad, fs)) \
-            * self.dev(pos.device).mask3 * kappa
+            * self.dev(pos.device).mask3 * self._kappa(pos.dtype)
         return self.unpad_array(pot.reshape(G, C, 1), fs)[:, 0]
 
     def _potential_near(self, ppad: torch.Tensor,
                         fs: FmmState) -> torch.Tensor:
         """Near-field potential [G, C], unscaled: for every valid P2P entry
-        (target sub-leaf, packed source block), sum rsqrt(dist2) over the
-        selected lane groups' real sources, self pairs and pad sources
-        excluded."""
+        (target sub-leaf, packed source block), sum the pair potential
+        (rsqrt(dist2) in 3D, -log(dist2)/2 in 2D) over the selected lane
+        groups' real sources, self pairs and pad sources excluded."""
         G, C, dim = self.G_sub, self.st.C, self.dim
         Gb, CB = self.G_blk, self.C_blk
         dev = ppad.device
@@ -642,24 +897,10 @@ class KdFmmEngine:
                 & real[bi]                                    # [k, CB]
             notself = (ti[:, None, None] * C + tslot[None, :, None]
                        != bi[:, None, None] * CB + sslot[None, None, :])
-            phi = torch.where(keep[:, None, :] & notself,
-                              torch.rsqrt(dist2), 0.0)
+            phi = torch.rsqrt(dist2) if dim == 3 else -0.5 * torch.log(dist2)
+            phi = torch.where(keep[:, None, :] & notself, phi, 0.0)
             out.index_add_(0, ti, phi.sum(dim=2))
         return out
-
-    def _l2p_matrix(self, dtype, device) -> torch.Tensor:
-        """[S_Lf, dim*S_Lf] with D[j, a*S_Lf + k] = coef of Lf[j]*V[k] in
-        the field's axis a (the twin's ``_l2p_terms``), cached per device."""
-        key = ("l2p", dtype, torch.device(device))
-        if key not in self._dev:
-            t = self.tables
-            D = np.zeros((t.S_Lf, t.dim, t.S_Lf))
-            for a, row in enumerate(mop._l2p_terms(t.dim, t.PL)):
-                for (j, k, c) in row:
-                    D[j, a, k] = c
-            self._dev[key] = torch.as_tensor(D.reshape(t.S_Lf, -1),
-                                             dtype=dtype, device=device)
-        return self._dev[key]
 
     def m2m_up(self, mpole_leaf: torch.Tensor, fs: FmmState) -> torch.Tensor:
         """M2M sweep: leaf multipoles [G, S_M] -> full heap [Mheap, S_M]."""
@@ -694,7 +935,11 @@ class KdFmmEngine:
         K = fs.m2l_tgt.shape[0]
         if fs.m2l_gtgt.shape[0] * g != K:
             raise ValueError("M2L lists are not in the grouped layout")
-        chunk = _pick_chunk(K, M2L_LOOP_CHUNK, g)
+        # the dense forms (p > SPARSE_P_MAX) hold a [chunk, S_Lt, S_M]
+        # operator per entry: bound it to ~2^26 elements
+        target = (M2L_LOOP_CHUNK if t.p <= mop.SPARSE_P_MAX
+                  else max(g, (1 << 26) // (t.S_Lt * t.S_M)))
+        chunk = _pick_chunk(K, target, g)
         center, lam = fs.center, fs.lam
         acc = torch.zeros(Mheap + 1, t.S_Lt, dtype=mpole_heap.dtype,
                           device=mpole_heap.device)
@@ -730,9 +975,12 @@ class KdFmmEngine:
         return locs                                           # [G, S_Lt]
 
     def _stage_p2p(self, ppad: torch.Tensor, fs: FmmState) -> torch.Tensor:
-        """Near-field pass on padded blocks: [G, C, dim], unscaled.  CUDA
-        tensors run the Hopper kernel, CPU tensors its plain version."""
-        pblk = ppad.reshape(self.G_blk, self.C_blk, self.dim)
-        out = p2p_cuda.p2p(pblk.contiguous(), fs.p2p_row_ptr, fs.p2p_col2d,
-                           self.nsub, self.config.eps2)
+        """Near-field pass on padded blocks: [G, C, dim], unscaled.  In dim
+        3 a CUDA tensor runs the Hopper kernel and a CPU tensor its plain
+        version; dim 2 runs the plain version on every device (the kernel
+        is dim 3 only, as the reference's; see the module docstring)."""
+        pblk = ppad.reshape(self.G_blk, self.C_blk, self.dim).contiguous()
+        fn = p2p_cuda.p2p if self.dim == 3 else p2p_cuda.p2p_plain
+        out = fn(pblk, fs.p2p_row_ptr, fs.p2p_col2d, self.nsub,
+                 self.config.eps2)
         return out.reshape(self.G_sub, self.st.C, self.dim)

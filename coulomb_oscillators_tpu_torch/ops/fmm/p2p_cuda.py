@@ -6,18 +6,27 @@ its kernels (``p2p_leaf_pairs`` and ``p2p_leaf_pairs_streaming``) become
 one CUDA kernel, ``csrc/p2p.cu``, built with ``nvcc`` for ``sm_90a`` at
 first use and bound through ctypes.
 
-Contract (both versions): ``pos`` [Gb, CB, 3] float32 padded slots in block
-layout (nsub sub-leaves of C = CB/nsub slots per block, pads at FAR);
+Contract (both versions): ``pos`` [Gb, CB, 3] float32 or float64 padded
+slots in block layout (nsub sub-leaves of C = CB/nsub slots per block, pads
+at FAR);
 ``row_ptr`` [Gb*nsub + 1] int32 per-sub-leaf CSR degrees; ``col2d``
 [Gb*nsub, dmax] int32 packed partner entries ``blk | bits << (32 - nsub)``
 (bit q selects lane group q of source block ``blk``; block id Gb is the
 all-FAR sentinel).  Returns the unscaled near-field acceleration
 [Gb, CB, 3]: for every target, sum over its partners' selected sources of
-d * (|d|^2 + eps2)^(-3/2).
+d * (|d|^2 + eps2)^(-3/2), in the dtype of ``pos``.
 
 :func:`p2p` dispatches on the device of ``pos``: a CPU tensor goes to
-:func:`p2p_plain`; a CUDA tensor goes to the kernel or raises.  There is no
-fallback between them.
+:func:`p2p_plain`; a CUDA tensor goes to the kernel's float32 or float64
+instantiation or raises.  There is no fallback between them.
+:func:`p2p_plain` also takes dim 2 (weight 1/dist2), which the kd engine
+runs on every device.
+
+Pads are not masked: a pad source at FAR adds d * w(FAR) to a real target,
+as in the reference's near-field sum.  In float32 dim 3 that weight
+underflows to exactly 0; in float64 it is r^3 = 1e-54, so each pad adds
+about 1e-36, and in dim 2 about 1e-18 — in both versions, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -42,9 +51,10 @@ _PLAIN_PAIRS = 1 << 25
 
 def _bind(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.co_p2p_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                  ctypes.c_float, vp]
-    lib.co_p2p_launch.restype = ci
+    for fn, eps in ((lib.co_p2p_launch, ctypes.c_float),
+                    (lib.co_p2p_launch_f64, ctypes.c_double)):
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, eps, vp]
+        fn.restype = ci
 
 
 # csrc/p2p.cu, built at first use
@@ -56,8 +66,8 @@ def _check(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
     if pos.dim() != 3 or pos.shape[2] != 3:
         raise ValueError(f"pos must be [Gb, CB, 3], got {tuple(pos.shape)}")
     Gb, CB, _ = pos.shape
-    if pos.dtype != torch.float32:
-        raise ValueError(f"pos must be float32, got {pos.dtype}")
+    if pos.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"pos must be float32 or float64, got {pos.dtype}")
     if nsub < 1 or CB % nsub:
         raise ValueError(f"CB={CB} is not a multiple of nsub={nsub}")
     if row_ptr.dtype != torch.int32 or row_ptr.shape != (Gb * nsub + 1,):
@@ -89,11 +99,13 @@ def p2p(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
             and col2d.is_contiguous()):
         raise ValueError("pos, row_ptr and col2d must be contiguous")
     lib = library.get()
+    launch = (lib.co_p2p_launch if pos.dtype == torch.float32
+              else lib.co_p2p_launch_f64)
     out = torch.empty_like(pos)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
-    rc = lib.co_p2p_launch(pos.data_ptr(), row_ptr.data_ptr(),
-                           col2d.data_ptr(), out.data_ptr(), Gb, CB, nsub,
-                           col2d.shape[1], float(eps2), stream)
+    rc = launch(pos.data_ptr(), row_ptr.data_ptr(), col2d.data_ptr(),
+                out.data_ptr(), Gb, CB, nsub, col2d.shape[1], float(eps2),
+                stream)
     if rc != 0:
         raise RuntimeError(f"P2P kernel launch failed: cudaError_t {rc}")
     launches += 1
@@ -102,14 +114,15 @@ def p2p(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
 
 def p2p_plain(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
               nsub: int, eps2: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device.
+    """Plain PyTorch version of the kernel, on any device, in dims 2 and 3.
 
     Walks the valid prefix of every sub-leaf's partner row (entries past
     the degree are never read by either version), gathers target sub-leaf
     and source block tiles in chunks, and evaluates the same pair weight
-    r = rsqrt(dist2), w = r^3 times the lane-group mask.  Source block id
-    Gb reads an all-FAR sentinel block, whose weights underflow to exactly
-    zero.  Per-target sums accumulate with a sorted index_add_."""
+    r = rsqrt(dist2), w = r^3 (dim 3) or r^2 (dim 2) times the lane-group
+    mask.  Source block id Gb reads an all-FAR sentinel block (zero weight
+    in float32 dim 3).  Per-target sums accumulate with a sorted
+    index_add_."""
     Gb, CB, dim = pos.shape
     C = CB // nsub
     G = Gb * nsub
@@ -137,6 +150,6 @@ def p2p_plain(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
         for a in range(1, dim):
             dist2 = dist2 + d[..., a] * d[..., a]
         r = torch.rsqrt(dist2)
-        w = r * r * r * mb[:, None, :].to(pos.dtype)
+        w = (r * r * r if dim == 3 else r * r) * mb[:, None, :].to(pos.dtype)
         out.index_add_(0, ti, torch.sum(d * w[..., None], dim=2))
     return out.reshape(Gb, CB, dim)

@@ -2,19 +2,22 @@
 async rebuild pipeline.
 
 Twin of ``coulomb_oscillators_tpu/simulate.py`` (reference sim loop
-main3.cu:832-874).  Two paths:
+main3.cu:832-874).  Three paths:
 
   * the plain engines ("direct", "direct_ref"): the integrator steps the
     oscillator force in a Python loop (the twin's jitted fori_loop);
-  * the kd engine (tree rebuilt every `tree_steps` iterations,
+  * the uniform-grid engines ("fmm3", "fmm3_traceless", "fmm2",
+    "fmm2_traceless", "appel"): a synchronous rebuild every `tree_steps`
+    iterations, then `k` steps on the original-order state;
+  * the kd engines (tree rebuilt every `tree_steps` iterations,
     fmm_cart3_kdtree.cuh:1619-1642): between rebuilds the state lives as
     padded [G, C, dim] leaf blocks and the integrator runs as a Python loop
-    of `k` steps; at window boundaries the host rebuild pipeline adopts a
-    tree built in a background thread from the previous boundary's
-    positions.
+    of `k` steps; at window boundaries the rebuild pipeline adopts a tree
+    built in a background thread from an earlier boundary's positions —
+    by the native host builder, or with ``tree_async_build="device"`` by
+    the device builders.
 
-Not ported (ROADMAP.md): mesh mode, ``tree_async_build="device"`` and the
-FMM engines other than ``fmm3_kd``.
+Not ported (ROADMAP.md): mesh mode.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from coulomb_oscillators_tpu_torch import native
 from coulomb_oscillators_tpu_torch.config import SimConfig
 from coulomb_oscillators_tpu_torch.models import integrators as I
 from coulomb_oscillators_tpu_torch.ops.elastic import add_elastic
@@ -76,8 +80,7 @@ class _HostCopy:
 
 
 class Simulator:
-    """Runs the Coulomb-oscillator system with a plain engine ("direct",
-    "direct_ref") or the kd-FMM engine."""
+    """Runs the Coulomb-oscillator system with any force engine."""
 
     def __init__(self, config: SimConfig, n: int, engine: str = "fmm3_kd",
                  mesh=None):
@@ -91,6 +94,7 @@ class Simulator:
         self._fmm = None
         self._fstate = None
         self._padded = None       # kd engine: ParticleState of [G, C, dim]
+        self._pending = None      # in-flight device rebuild
         if not (engine.startswith("fmm") or engine == "appel"):
             from coulomb_oscillators_tpu_torch.models.oscillator import (
                 make_oscillator_force)
@@ -98,10 +102,6 @@ class Simulator:
             self._plain_step = I.make_step(self._plain_force,
                                            config.integrator, config.dt)
             return
-        if config.tree_async and config.tree_async_build == "device":
-            raise NotImplementedError(
-                "tree_async_build='device' needs the device builders, not "
-                "ported yet: ROADMAP.md queue 1, item 3")
         from coulomb_oscillators_tpu_torch.ops import fmm as fmm_mod
         self._fmm = fmm_mod.make_engine_object(config, n, engine)
         self._steps_since_build = 0
@@ -116,7 +116,27 @@ class Simulator:
         # repad), adopted refreshes, synchronous refreshes, synchronous
         # full builds
         self.rebuilds = collections.Counter()
-        self._scan_step = self._make_fmm_scan_padded()
+        self._use_padded = hasattr(self._fmm, "force_padded")
+        self._scan_step = (self._make_fmm_scan_padded() if self._use_padded
+                           else self._make_fmm_scan())
+
+    # ------------------------------------------------------------------ #
+    def _make_fmm_scan(self):
+        """Window loop on the original-order state (uniform-grid engines):
+        `k` steps against the frozen tree."""
+        eng = self._fmm
+        cfg = self.config
+        omega0_sq = self.omega0_sq
+
+        def scan_k(state, fstate, k):
+            step = I.make_step(
+                lambda p: add_elastic(p, eng.force(p, fstate), omega0_sq),
+                cfg.integrator, cfg.dt)
+            for _ in range(k):
+                state = step(state)
+            return state
+
+        return scan_k
 
     # ------------------------------------------------------------------ #
     def _make_fmm_scan_padded(self):
@@ -171,8 +191,9 @@ class Simulator:
         self._steps_since_build = 0
         acc = self._fmm.force(state.pos, self._fstate)
         out = state._replace(acc=add_elastic(state.pos, acc, self.omega0_sq))
-        self._padded = self._pad_state(out)
-        self._last_out = out
+        if self._use_padded:
+            self._padded = self._pad_state(out)
+            self._last_out = out
         return out
 
     def _set_stale_margin(self, state: ParticleState) -> None:
@@ -187,6 +208,8 @@ class Simulator:
         """Advance `steps` iterations, rebuilding the tree as configured."""
         if self._fmm is None:
             return I.nsteps(self._plain_step, state, steps)
+        if not self._use_padded:
+            return self._run_unpadded(state, steps)
         # a state we did not hand out (or a cold start) enters padded form
         if (self._padded is None or self._fstate is None
                 or state is not self._last_out):
@@ -196,6 +219,23 @@ class Simulator:
             self._padded = self._pad_state(state)
         self.advance_padded(steps)
         return self.current_state()
+
+    def _run_unpadded(self, state: ParticleState,
+                      steps: int) -> ParticleState:
+        """Uniform-grid engines: a synchronous rebuild every `tree_steps`
+        iterations, then up to `tree_steps` steps against it."""
+        ts = max(self.config.tree_steps, 1)
+        done = 0
+        while done < steps:
+            if self._fstate is None or self._steps_since_build >= ts:
+                self._fstate = self._fmm.build(state.pos)
+                self._steps_since_build = 0
+                self.rebuilds["sync_full"] += 1
+            k = min(ts - self._steps_since_build, steps - done)
+            state = self._scan_step(state, self._fstate, k)
+            self._steps_since_build += k
+            done += k
+        return state
 
     def advance_padded(self, steps: int) -> torch.Tensor:
         """Advance on the padded path without unpadding at the end; returns
@@ -232,15 +272,37 @@ class Simulator:
         a composed old -> new padded-layout gather (repad); a background
         REFRESH (exact bounds on the current permutation) at the other
         boundaries, adopted at the next one.  The first boundary primes the
-        pipeline with a synchronous refresh.  Sync: the reference's blocking
-        rebuild."""
+        pipeline with a synchronous refresh.  With
+        ``tree_async_build="device"`` each boundary instead adopts the
+        device rebuild submitted at the previous one (a refresh primes the
+        first).  Sync (or a host builder without the native library): the
+        reference's blocking rebuild."""
         eng = self._fmm
         device = self._padded.pos.device
-        if not self.config.tree_async:
+        use_device = self.config.tree_async_build == "device"
+        if not self.config.tree_async or not (use_device
+                                              or native.available()):
             cur = self._unpad_state(self._padded)
             self._fstate = eng.build(cur.pos)
             self._padded = self._pad_state(cur)
             self.rebuilds["sync_full"] += 1
+            return
+        if use_device:
+            # the job sorts on the device from original-order positions
+            # (unpad here, repad at adoption)
+            cur = self._unpad_state(self._padded)
+            if self._pending is not None:
+                t0 = time.perf_counter()
+                self._fstate = self._pending.result()
+                self.last_rebuild_wait = time.perf_counter() - t0
+                self._padded = self._pad_state(cur)
+                self.rebuilds["adopt_device"] += 1
+            else:
+                self._fstate = eng.refresh(self._padded.pos, self._fstate)
+                self.rebuilds["sync_refresh"] += 1
+            self._pending = self._executor().submit(
+                lambda p=cur.pos: eng.adopt(eng.build_device_async(p),
+                                            device))
             return
 
         D = max(1, int(self.config.tree_pipeline))
@@ -308,6 +370,10 @@ class Simulator:
     def _drop_pending(self) -> None:
         """Cancel or finish every queued rebuild job (their results are
         discarded, their errors raised) and reset the pipeline."""
+        if self._pending is not None:
+            if not self._pending.cancel():
+                self._pending.result()
+            self._pending = None
         while self._pqueue:
             _, _, f = self._pqueue.popleft()
             if not f.cancel():

@@ -76,6 +76,59 @@ def test_snapshots_match_reference_cli(tmp_path, x64_restored, dim, tol):
         assert np.abs(tp - jp).max() <= tol * np.abs(jp).max()
 
 
+def test_dim2_default_engine_matches_reference(tmp_path, x64_restored):
+    """-dim 2 -cpu with no -engine runs fmm2 in float64 and writes the
+    reference's snapshot names and float64 bytes.  The reference CLI's own
+    run of these arguments raises (its octree's M2L dynamic_slice mixes
+    int32 and int64 indices once the CLI turns jax_enable_x64 on), so the
+    positions are held against the reference Simulator("fmm2") in float32
+    from the same initial state and cadence: within 1e-5 of max|pos|
+    (float32 rounding of the reference)."""
+    import jax.numpy as jnp
+    from coulomb_oscillators_tpu import ParticleState as JState
+    from coulomb_oscillators_tpu import SimConfig as JConfig
+    from coulomb_oscillators_tpu.simulate import Simulator as JSim
+    from coulomb_oscillators_tpu_torch import SimConfig
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+
+    n = 300
+    args = ["-n", str(n), "-iters", "10", "-steps", "5", "-dim", "2"]
+    assert cli.main(args + ["-o", str(tmp_path / "t"), "-cpu"]) == 0
+    with pytest.raises(TypeError, match="dynamic_slice"):
+        jcli.main(args + ["-o", str(tmp_path / "j"), "-cpu"])
+    names = _snapshots(tmp_path / "t")
+    assert names == ["out0_0.000500.bin", "out10_0.000500.bin",
+                     "out5_0.000500.bin"]
+    om = [6.22 * 2 * np.pi, 6.21 * 2 * np.pi]
+    beam = TB.matched_beam_2d(om, [0.03e-3, 0.01e-3], 0.8)
+    assert cli.default_engine(SimConfig(dim=2, omega0=tuple(om))) == "fmm2"
+    jax.config.update("jax_enable_x64", False)
+    pos, vel = ID.init_kv(n, beam["A"], beam["omega"], dtype=np.float64)
+    js = JSim(JConfig(dim=2, omega0=tuple(om), xi=beam["xi"]), n, "fmm2")
+    st = js.init_acc(JState(jnp.asarray(pos, jnp.float32),
+                            jnp.asarray(vel, jnp.float32),
+                            jnp.zeros((n, 2), jnp.float32)))
+    for it, k in ((0, 1), (5, 5), (10, 5)):
+        st = js.run(st, k)
+        f = tmp_path / "t" / f"out{it}_0.000500.bin"
+        assert os.path.getsize(f) == 2 * n * 2 * 8
+        tp, _ = cio.read_state(str(f), dim=2, dtype=np.float64)
+        jp = np.asarray(st.pos, np.float64)
+        assert np.abs(tp - jp).max() <= 1e-5 * np.abs(jp).max()
+
+
+def test_test_mode_sweeps_orders_dim2(capsys):
+    """-test on the 2D default engine (fmm2): ten error rows for orders
+    1..10, converging with the order."""
+    assert cli.main(["-test", "-dim", "2", "-n", "600", "-cpu"]) == 0
+    out = capsys.readouterr().out
+    rows = [l for l in out.splitlines() if "Relative error" in l]
+    assert len(rows) == 10
+    errs = [float(l.split(":")[-1]) for l in rows]
+    assert errs[-1] < errs[0] * 0.5, errs
+    assert "Average time" in out
+
+
 @pytest.mark.slow
 def test_test_mode_sweeps_orders(capsys):
     """Ten engines up to p=10 (about a minute on one CPU thread); the

@@ -199,11 +199,19 @@ def test_auto_level_and_engine_registry():
         assert auto_level(*args) == j_auto_level(*args)
     assert isinstance(tfmm.make_engine_object(TConfig(), 512, "fmm3_kd"),
                       KdFmmEngine)
-    for name in ("fmm2_kd", "fmm3", "fmm3_traceless", "appel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfmm.make_engine_object(TConfig(), 512, name)
-    with pytest.raises(NotImplementedError):
-        KdFmmEngine(TConfig(dim=2, omega0=(1.0, 1.0)), 512)
+    # the reference's whole registry constructs
+    cfg2 = TConfig(dim=2, omega0=(1.0, 1.0))
+    for name, cfg, cls in (("fmm2_kd", cfg2, KdFmmEngine),
+                           ("fmm3", TConfig(), tfmm.OctreeFmmEngine),
+                           ("fmm3_traceless", TConfig(),
+                            tfmm.OctreeFmmEngine),
+                           ("fmm2", cfg2, tfmm.OctreeFmmEngine),
+                           ("fmm2_traceless", cfg2, tfmm.OctreeFmmEngine),
+                           ("appel", TConfig(), tfmm.AppelEngine)):
+        assert isinstance(tfmm.make_engine_object(cfg, 512, name), cls)
+    assert KdFmmEngine(cfg2, 512).dim == 2
+    assert KdFmmEngine(TConfig(precision="float64"), 512).dtype == \
+        torch.float64
     with pytest.raises(ValueError):
         tfmm.make_engine_object(TConfig(), 512, "nope")
 
@@ -213,8 +221,10 @@ def test_p2p_wrapper_checks_its_inputs():
     rp = torch.zeros(17, dtype=torch.int32)
     col = torch.zeros(16, 128, dtype=torch.int32)
     assert p2p_cuda.p2p(pos, rp, col, 4, 1e-18).shape == pos.shape
+    assert p2p_cuda.p2p(pos.double(), rp, col, 4, 1e-18).dtype == \
+        torch.float64
     with pytest.raises(ValueError):
-        p2p_cuda.p2p(pos.double(), rp, col, 4, 1e-18)
+        p2p_cuda.p2p(pos.half(), rp, col, 4, 1e-18)
     with pytest.raises(ValueError):
         p2p_cuda.p2p(pos, rp[:-1], col, 4, 1e-18)
     with pytest.raises(ValueError):

@@ -104,3 +104,133 @@ def test_operators_match(p, dim, precision):
     _close(TO.m2l_sparse_pre(tt, T["M"], *geo_t),
            JO.m2l_sparse_pre(jt, J["M"], *geo_j), tol)
     assert TO._l2p_terms(dim, p) == JO._l2p_terms(dim, p)
+
+
+# ---- the operators the uniform-grid engines and the potentials call ----
+# p = 1..8 (p = 7, 8 take the dense branches), dims 2 and 3, float32 and
+# float64, with and without the dipole slots (the octree builds its tables
+# with them, the kd engine without)
+
+OPS_P = range(1, 9)
+
+
+def _both(p, dim, precision, no_dipole, B=40):
+    """Seeded inputs for both packages: (reference tables, port tables,
+    jnp inputs, torch inputs)."""
+    rng = np.random.default_rng(100 * p + 10 * dim + no_dipole)
+    t = jbt(dim, p, no_dipole=no_dipole)
+    x = dict(
+        M=rng.normal(size=(B, t.S_M)), M2=rng.normal(size=(B, t.S_M)),
+        Lt=rng.normal(size=(B, t.S_Lt)),
+        R=rng.normal(size=(B, dim)) * 3.0,
+        la=rng.uniform(0.5, 1.0, size=B), lb=rng.uniform(0.5, 1.0, size=B),
+        e=rng.uniform(-1.0, 1.0, size=(B, dim)),
+        q=rng.uniform(0.5, 1.5, size=B),
+        w=rng.uniform(-1.0, 1.0, size=(4, 6, dim)),
+        Lg=rng.normal(size=(4, t.S_Lt)), lg=rng.uniform(0.5, 1.0, size=4),
+        mask=rng.uniform(size=(4, 6)) < 0.7)
+    x = {k: (v if v.dtype == bool else v.astype(precision))
+         for k, v in x.items()}
+    return (t, tbt(dim, p, no_dipole=no_dipole),
+            {k: jnp.asarray(v) for k, v in x.items()},
+            {k: torch.from_numpy(v) for k, v in x.items()})
+
+
+def _sweep(p, dim):
+    for precision in ("float32", "float64"):
+        for nd in (False, True):
+            yield (TOL[precision],) + _both(p, dim, precision, nd)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("p", OPS_P)
+def test_p2m_contrib_and_monomials_match(p, dim):
+    for tol, jt, tt, J, T in _sweep(p, dim):
+        _close(TO.eval_monomials_M(tt, T["e"]), JO.eval_monomials_M(jt, J["e"]),
+               tol)
+        _close(TO.eval_monomials_L(tt, T["e"]), JO.eval_monomials_L(jt, J["e"]),
+               tol)
+        _close(TO.p2m_contrib(tt, T["e"]), JO.p2m_contrib(jt, J["e"]), tol)
+        _close(TO.p2m_contrib(tt, T["e"], T["q"]),
+               JO.p2m_contrib(jt, J["e"], J["q"]), tol)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("p", OPS_P)
+def test_m2l_matches(p, dim):
+    for tol, jt, tt, J, T in _sweep(p, dim):
+        _close(TO.m2l(tt, T["M"], T["R"], T["la"], T["lb"]),
+               JO.m2l(jt, J["M"], J["R"], J["la"], J["lb"]), tol)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("p", OPS_P)
+def test_m2l_both_matches(p, dim):
+    for tol, jt, tt, J, T in _sweep(p, dim):
+        got = TO.m2l_both(tt, T["M"], T["M2"], T["R"], T["la"], T["lb"])
+        ref = JO.m2l_both(jt, J["M"], J["M2"], J["R"], J["la"], J["lb"])
+        for a, b in zip(got, ref):
+            _close(a, b, tol)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("p", OPS_P)
+def test_l2p_field_matches(p, dim):
+    for tol, jt, tt, J, T in _sweep(p, dim):
+        _close(TO.l2p_field(tt, T["Lt"], T["e"], T["la"]),
+               JO.l2p_field(jt, J["Lt"], J["e"], J["la"]), tol)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("p", OPS_P)
+def test_l2p_field_blocked_matches(p, dim):
+    for tol, jt, tt, J, T in _sweep(p, dim):
+        _close(TO.l2p_field_blocked(tt, T["Lg"], T["w"], T["lg"]),
+               JO.l2p_field_blocked(jt, J["Lg"], J["w"], J["lg"]), tol)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("p", OPS_P)
+def test_l2p_potential_matches(p, dim):
+    for tol, jt, tt, J, T in _sweep(p, dim):
+        _close(TO.l2p_potential(tt, T["Lt"], T["e"]),
+               JO.l2p_potential(jt, J["Lt"], J["e"]), tol)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("p", OPS_P)
+def test_m2p_field_and_potential_match(p, dim):
+    for tol, jt, tt, J, T in _sweep(p, dim):
+        _close(TO.m2p_field(tt, T["M"], T["R"], T["lb"]),
+               JO.m2p_field(jt, J["M"], J["R"], J["lb"]), tol)
+        _close(TO.m2p_potential(tt, T["M"], T["R"], T["lb"]),
+               JO.m2p_potential(jt, J["M"], J["R"], J["lb"]), tol)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("p", OPS_P)
+def test_column_forms_match(p, dim):
+    """p2m_from_cols and l2p_field_cols: the reference takes and returns
+    lists of monomial columns, the port stacks them on the last axis."""
+    for tol, jt, tt, J, T in _sweep(p, dim):
+        Vt = TO.eval_monomial_cols(T["w"], jt.PL, dim)
+        Vj = JO.eval_monomial_cols(J["w"], jt.PL, dim)
+        _close(TO.p2m_from_cols(tt, Vt, T["mask"]),
+               JO.p2m_from_cols(jt, Vj, J["mask"]), tol)
+        Lf_t, Lf_j = TO.expand_L(tt, T["Lg"]), JO.expand_L(jt, J["Lg"])
+        _close(TO.l2p_field_cols(tt, Lf_t, Vt, T["lg"]),
+               JO.l2p_field_cols(jt, Lf_j, Vj, J["lg"]), tol)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("p", [2, 5, 8])
+def test_shift_operators_with_dipole_slots_match(p, dim):
+    """m2m and l2l on the tables with the dipole slots (the octree's);
+    test_operators_match holds them on the kd engine's no_dipole tables."""
+    for tol, jt, tt, J, T in _sweep(p, dim):
+        s_t, s_j = 0.3 * T["e"], 0.3 * J["e"]
+        rho_t, rho_j = 0.5 + 0.2 * T["la"], 0.5 + 0.2 * J["la"]
+        _close(TO.m2m(tt, T["M"], s_t, rho_t), JO.m2m(jt, J["M"], s_j, rho_j),
+               tol)
+        _close(TO.l2l(tt, T["Lt"], s_t, rho_t),
+               JO.l2l(jt, J["Lt"], s_j, rho_j), tol)

@@ -82,6 +82,29 @@ def test_kernel_matches_plain_wide_blocks(cuda, kw):
     assert dev <= 1e-5, dev
 
 
+@pytest.mark.parametrize("n", [50_000, 1_000_000])
+def test_float64_kernel_matches_plain(cuda, n):
+    """The double instantiation on a float64 kd state (device Morton
+    build, uniform box): one launch, and max|da| / max|a| <= 1e-12 against
+    the plain float64 version.  Both carry the same ~1e-36 per FAR pad."""
+    cfg = SimConfig(fmm_order=4, tree_radius=2.0, precision="float64")
+    pos = torch.from_numpy(ID.init_uniform(n, (-0.01,) * 3, (0.01,) * 3)
+                           .astype(np.float64)).to(cuda)
+    eng = KdFmmEngine(cfg, n, sort_mode="morton")
+    fs = eng.build(pos)
+    ppad = eng.pad_array(pos, fs, fill=FAR)
+    pblk = ppad.reshape(eng.G_blk, eng.C_blk, 3)
+    before = p2p_cuda.launches
+    got = eng._stage_p2p(ppad, fs).reshape(pblk.shape)
+    assert p2p_cuda.launches == before + 1 and got.dtype == torch.float64
+    ref = p2p_cuda.p2p_plain(pblk, fs.p2p_row_ptr, fs.p2p_col2d, eng.nsub,
+                             cfg.eps2)
+    torch.cuda.synchronize()
+    scale = torch.linalg.vector_norm(ref, dim=-1).max()
+    dev = float(torch.linalg.vector_norm(got - ref, dim=-1).max() / scale)
+    assert dev <= 1e-12, dev
+
+
 def test_kernel_rejects_unsupported_layout(cuda):
     pos = torch.zeros(2, 96, 3, device=cuda)          # C = 24 at nsub = 4
     rp = torch.zeros(9, dtype=torch.int32, device=cuda)
