@@ -13,7 +13,10 @@ p=6, r=1.67), and the CLI's direct engine at its default N=30001.
   3. P2P kernel vs its plain PyTorch version on the card at N=1M, on the
      real engine state (nsub=4, CB=128), a sub_depth=0 engine (nsub=1),
      dens_inhom=0.25 (CB=512) and tree_L=10 (CB=1024): max|da| / max|a|
-     <= 1e-5, with CUDA-event times of both;
+     <= 1e-5, with CUDA-event times of both; each case's work counted from
+     its inputs (entries, slot pairs, real pairs, bytes), its flop, rsqrt
+     and byte bounds (utils/roofline.py) and the kernel's share of the
+     largest;
   4. accuracy: engine.force at N=1M against the Kahan direct oracle on
      1,000 seeded targets, mean relative error <= 1e-3;
   5. simulator: a small run on the card against the same run on the CPU,
@@ -46,7 +49,8 @@ p=6, r=1.67), and the CLI's direct engine at its default N=30001.
      2D Gaussian beam) against Kahan (<= 2e-3) and a 12-step Simulator
      timing; fmm3_kd in float64 at N=1M with sort_mode="morton" on the
      uniform box: the double P2P kernel against its plain float64 version
-     (<= 1e-12 of max|a|, both timed), the force against a float64 Kahan
+     (<= 1e-12 of max|a|, both timed, with its work and bounds as in
+     phase 3), the force against a float64 Kahan
      oracle (<= 1e-3), and a Simulator run with tree_async_build="device"
      over 3 windows of 8 steps (one device rebuild adopted; P2P launches ==
      force evaluations);
@@ -147,21 +151,43 @@ def _p2p_case(cfg, sub_depth, pos, torch):
     rel, mabs = _rel_dev(got, ref)
     ms = _cuda_ms(kern, 10, torch)
     plain_ms = _cuda_ms(plain, 2, torch)
-    tiles = int(fs.p2p_valid.sum())
-    # pair evaluations the kernel makes: C targets x C sources per set
-    # mask bit of every (sub-leaf, block) entry, pad lanes included
-    bits = (fs.p2p_src[fs.p2p_valid].long() & 0xFFFFFFFF) >> eng.mask_shift
-    pairs = eng.st.C ** 2 * int(sum((bits >> q) & 1
-                                    for q in range(eng.nsub)).sum())
+    work = _p2p_work(pblk, fs, eng, ms, torch)
     print(f"p2p nsub={eng.nsub} L={eng.L} C={eng.st.C} Gb={eng.G_blk} "
-          f"CB={eng.C_blk} dmax={fs.p2p_col2d.shape[1]} tiles={tiles} "
-          f"pairs={pairs} build_s={tb:.3f}: rel_dev={rel:.3e} "
-          f"max_abs={mabs:.3e} kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-          f"kernel_Gpairs_per_s={pairs / ms / 1e6:.1f}")
+          f"CB={eng.C_blk} dmax={fs.p2p_col2d.shape[1]} build_s={tb:.3f}: "
+          f"rel_dev={rel:.3e} max_abs={mabs:.3e} kernel_ms={ms:.3f} "
+          f"plain_ms={plain_ms:.3f}; {work['text']}")
     _require(rel <= P2P_TOL, f"P2P kernel vs plain at nsub={eng.nsub}, "
              f"CB={eng.C_blk}: {rel:.3e} <= {P2P_TOL}")
     return dict(nsub=eng.nsub, CB=eng.C_blk, max_rel_err=rel, max_abs_err=mabs,
-                max_abs_ref=float(ref.abs().max()), ms=ms, plain_ms=plain_ms)
+                max_abs_ref=float(ref.abs().max()), ms=ms, plain_ms=plain_ms,
+                **work["row"])
+
+
+def _p2p_work(pblk, fs, eng, ms, torch):
+    """The P2P call's work counted from its inputs (entries, slot pairs,
+    real pairs, bytes) and its bounds on the card (utils/roofline.py):
+    a line of text and the kernels line's fields."""
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.utils import roofline
+    c = p2p_cuda.pair_counts(pblk, fs.p2p_row_ptr, fs.p2p_col2d, eng.nsub)
+    double = pblk.dtype == torch.float64
+    b = roofline.bound(c["real_pairs"], c["bytes"], double=double)
+    share = b["bound_ms"] / ms
+    peak = roofline.FP64_FLOPS if double else roofline.FP32_FLOPS
+    text = (f"entries={c['entries']} pairs={c['pairs']} "
+            f"real_pairs={c['real_pairs']}; bounds: flop "
+            f"{b['flop_ms']:.4f} ms ({roofline.FLOPS_PER_PAIR[3]} flops a "
+            f"real pair at {peak / 1e12:g} TFLOP/s), rsqrt "
+            f"{b['mufu_ms']:.4f} ms, bytes "
+            f"{b['byte_ms']:.4f} ms ({c['bytes']} B); kernel at "
+            f"{100 * share:.1f}% of the {b['bound_by']} bound "
+            f"{b['bound_ms']:.4f} ms; "
+            f"{c['real_pairs'] / ms / 1e9:.3f}T real pairs/s")
+    return dict(text=text, row=dict(
+        pairs=c["pairs"], real_pairs=c["real_pairs"], entries=c["entries"],
+        bytes=c["bytes"], flop_ms=b["flop_ms"], mufu_ms=b["mufu_ms"],
+        byte_ms=b["byte_ms"], bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+        bound_share=share))
 
 
 def _cli_beams(n):
@@ -376,18 +402,21 @@ def _phase_kd_variants(dev, torch):
     rel, mabs = _rel_dev(got, ref)
     ms = _cuda_ms(kern, 5, torch)
     plain_ms = _cuda_ms(plain, 1, torch)
+    work = _p2p_work(pblk, fs, eng, ms, torch)
     acc = eng.force(x, fs)
     err = _kahan_err(acc, x, cfg, N, torch)
     print(f"p2p float64 N={N} morton L={eng.L} C={eng.st.C} build {tb:.3f} "
           f"s: kernel vs plain {rel:.3e} of max|a| (max_abs {mabs:.3e}); "
-          f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}; force (p=5, r=2) "
-          f"mean rel err vs float64 Kahan {err:.3e} (bound {FORCE_TOL})")
+          f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}; {work['text']}; "
+          f"force (p=5, r=2) mean rel err vs float64 Kahan {err:.3e} "
+          f"(bound {FORCE_TOL})")
     _require(got.dtype == torch.float64 and acc.dtype == torch.float64,
              "float64 outputs")
     _require(rel <= F64_P2P_TOL, f"float64 P2P {rel:.3e} <= {F64_P2P_TOL}")
     _require(err <= FORCE_TOL, f"float64 force {err:.3e} <= {FORCE_TOL}")
     row = dict(max_rel_err=rel, max_abs_err=mabs,
-               max_abs_ref=float(ref.abs().max()), ms=ms, plain_ms=plain_ms)
+               max_abs_ref=float(ref.abs().max()), ms=ms, plain_ms=plain_ms,
+               **work["row"])
     del got, ref, ppad, pblk, acc, fs, eng
 
     # the main path in float64: a Simulator with the device builder
@@ -448,6 +477,7 @@ def main() -> int:
     from coulomb_oscillators_tpu_torch.simulate import Simulator
     from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
     from coulomb_oscillators_tpu_torch.utils import io as SIO
+    from coulomb_oscillators_tpu_torch.utils import roofline
 
     dev = torch.device("cuda", 0)
     smi = _smi()
@@ -473,9 +503,12 @@ def main() -> int:
           f"{D.library.build_seconds:.2f} s, co_native.cpp "
           f"{native.build_seconds:.2f} s (concurrent)")
     for lib in (p2p_cuda.library, D.library):
+        fn = ""
         for line in lib.build_log.splitlines():
+            if "Compiling entry" in line:
+                fn = line.split("'")[1]
             if "registers" in line or "spill" in line:
-                print(f"ptxas {lib.name}: {line.strip()}")
+                print(f"ptxas {lib.name} {fn}: {line.strip()}")
     _phase("build", t0)
 
     # ---- 3. P2P kernel vs plain ----------------------------------------
@@ -601,7 +634,11 @@ def main() -> int:
         ms = _cuda_ms(lambda: D.direct(p, eps2, kap), 20, torch)
         plain_ms = _cuda_ms(lambda: D.direct_plain(p, eps2, kap), 3, torch)
         pairs = N_CLI * N_CLI
-        print(f"direct N={N_CLI} dim={dim} splits="
+        b = roofline.bound(pairs, 2 * p.numel() * 4, dim=dim)
+        print(f"direct N={N_CLI} dim={dim} bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}: {roofline.FLOPS_PER_PAIR[dim]} flops and "
+              f"one special-function op a pair; kernel at "
+              f"{100 * b['bound_ms'] / ms:.1f}%) splits="
               f"{D.splits_for(N_CLI, torch.cuda.get_device_properties(dev).multi_processor_count)}: "
               f"kernel vs plain rel_dev={rel:.3e} max_abs={mabs:.3e}; mean "
               f"rel err vs Kahan kernel {e_k:.3e} plain {e_p:.3e}; "
@@ -617,7 +654,10 @@ def main() -> int:
                                 max_abs_ref=float(plain.abs().max()),
                                 kahan_mean_rel_err=e_k,
                                 plain_kahan_mean_rel_err=e_p, ms=ms,
-                                plain_ms=plain_ms)
+                                plain_ms=plain_ms, pairs=pairs,
+                                bound_ms=b["bound_ms"],
+                                bound_by=b["bound_by"],
+                                bound_share=b["bound_ms"] / ms)
     _phase("direct", t0)
 
     # ---- 7. the CLI on the card ----------------------------------------
@@ -756,6 +796,9 @@ def main() -> int:
     _phase("native", t0)
 
     row, drow = p2p_rows[0], direct_rows[3]
+    # no single PyTorch call computes a masked leaf-pair sum or an
+    # all-pairs softened Coulomb sum, so library_ms is null
+    bound_keys = ("bound_ms", "bound_by", "bound_share")
     print(json.dumps({"kernels": [
         {"name": "p2p", "route": "cuda",
          "source": "coulomb_oscillators_tpu_torch/csrc/p2p.cu",
@@ -764,7 +807,10 @@ def main() -> int:
          "launches": p2p_launches, "max_abs_err": row["max_abs_err"],
          "max_abs_ref": row["max_abs_ref"],
          "max_rel_err": row["max_rel_err"], "ms": row["ms"],
-         "plain_ms": row["plain_ms"], "cases": p2p_rows},
+         "plain_ms": row["plain_ms"], "pairs": row["pairs"],
+         "real_pairs": row["real_pairs"],
+         **{k: row[k] for k in bound_keys}, "library_ms": None,
+         "cases": p2p_rows},
         {"name": "p2p_float64", "route": "cuda",
          "source": "coulomb_oscillators_tpu_torch/csrc/p2p.cu",
          "replaces": "coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py:52",
@@ -772,15 +818,18 @@ def main() -> int:
          "max_abs_err": f64_row["max_abs_err"],
          "max_abs_ref": f64_row["max_abs_ref"],
          "max_rel_err": f64_row["max_rel_err"], "ms": f64_row["ms"],
-         "plain_ms": f64_row["plain_ms"]},
+         "plain_ms": f64_row["plain_ms"], "pairs": f64_row["pairs"],
+         "real_pairs": f64_row["real_pairs"],
+         **{k: f64_row[k] for k in bound_keys}, "library_ms": None},
         {"name": "direct", "route": "cuda",
          "source": "coulomb_oscillators_tpu_torch/csrc/direct.cu",
          "replaces": "coulomb_oscillators_tpu/ops/direct.py:161",
          "launches": direct_launches, "max_abs_err": drow["max_abs_err"],
          "max_abs_ref": drow["max_abs_ref"],
          "max_rel_err": drow["max_rel_err"], "ms": drow["ms"],
-         "plain_ms": drow["plain_ms"], "cases": [direct_rows[3],
-                                                 direct_rows[2]]}]}))
+         "plain_ms": drow["plain_ms"], "pairs": drow["pairs"],
+         **{k: drow[k] for k in bound_keys}, "library_ms": None,
+         "cases": [direct_rows[3], direct_rows[2]]}]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

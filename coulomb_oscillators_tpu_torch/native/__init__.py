@@ -3,10 +3,11 @@ builder (and the loader of the CUDA kernels) the port's compiled sources
 use.
 
 Twin of ``coulomb_oscillators_tpu/native/__init__.py``: the same functions
-(``kdtree_build``, ``node_geometry``, ``traverse_fine``) over the reference's
-own ``coulomb_oscillators_tpu/native/co_native.cpp``, compiled by path with
-``g++``.  That source has no JAX in it, so there is no second copy of the
-C++.  Differences from the twin:
+(``kdtree_build``, ``node_geometry``, ``traverse_fine``) over
+``co_native.cpp`` beside this file, a copy of the reference's
+``coulomb_oscillators_tpu/native/co_native.cpp`` (no JAX in either),
+compiled with ``g++``.  The port builds its own copy so that it reads no
+file of the JAX package.  Differences from the twin:
 
   * the library is built into the port's git-ignored ``build/`` directory
     at the repository root, never into the JAX package's directory;
@@ -32,7 +33,7 @@ import numpy as np
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 BUILD_DIR = os.path.join(_REPO, "build")
-SRC = os.path.join(_REPO, "coulomb_oscillators_tpu", "native", "co_native.cpp")
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "co_native.cpp")
 
 _lock = threading.Lock()
 _lib = None

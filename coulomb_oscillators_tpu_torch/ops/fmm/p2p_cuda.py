@@ -18,7 +18,11 @@ d * (|d|^2 + eps2)^(-3/2), in the dtype of ``pos``.
 
 :func:`p2p` dispatches on the device of ``pos``: a CPU tensor goes to
 :func:`p2p_plain`; a CUDA tensor goes to the kernel's float32 or float64
-instantiation or raises.  There is no fallback between them.
+instantiation or raises.  There is no fallback between them.  Before the
+launch the wrapper sorts the kernel's CUDA blocks by their partner entry
+count, heaviest first (:func:`block_order`, a few small device ops, no
+host sync), so the longest rows do not start last; the result does not
+depend on that order (:func:`launch` takes any order, or none).
 :func:`p2p_plain` also takes dim 2 (weight 1/dist2), which the kd engine
 runs on every device.
 
@@ -39,6 +43,7 @@ import torch
 from coulomb_oscillators_tpu_torch import native
 
 FAR = 1e18                 # pad-slot coordinate (the reference's FAR)
+PAD_X = 1e17               # x at or above it marks a pad slot (kPadX)
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "p2p.cu")
 
@@ -48,12 +53,17 @@ launches = 0
 # pairs per chunk of the plain version (bounds its [k, C, CB] temporaries)
 _PLAIN_PAIRS = 1 << 25
 
+# target slots per CUDA block of the kernel (kSlots in csrc/p2p.cu), and
+# per warp tile (kTile)
+BLOCK_SLOTS = 128
+TILE_SLOTS = 32
+
 
 def _bind(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn, eps in ((lib.co_p2p_launch, ctypes.c_float),
                     (lib.co_p2p_launch_f64, ctypes.c_double)):
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, eps, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, eps, vp]
         fn.restype = ci
 
 
@@ -81,15 +91,43 @@ def _check(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
         raise ValueError("pos, row_ptr and col2d must share a device")
 
 
+def block_order(row_ptr: torch.Tensor, Gb: int, CB: int, nsub: int,
+                dmax: int) -> torch.Tensor:
+    """The kernel's CUDA blocks (Gb * ceil(CB / S) of S = min(CB, 128)
+    target slots each, block-major) as int32 ids sorted by their partner
+    entries, heaviest first: a block's work is the clamped degree of each
+    32-slot tile's sub-leaf, summed.  A stable sort, on the device of
+    `row_ptr`."""
+    S = min(CB, BLOCK_SLOTS)
+    nsc = -(-CB // S)
+    dev = row_ptr.device
+    deg = (row_ptr[1:] - row_ptr[:-1]).clamp(max=dmax).view(Gb, nsub)
+    start = torch.arange(0, CB, TILE_SLOTS, device=dev)
+    work = torch.zeros(Gb, nsc, dtype=deg.dtype, device=dev)
+    work.index_add_(1, start // S, deg[:, start // (CB // nsub)])
+    return torch.argsort(work.view(-1), descending=True,
+                         stable=True).to(torch.int32)
+
+
 def p2p(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
         nsub: int, eps2: float) -> torch.Tensor:
     """Near-field acceleration [Gb, CB, 3] (see the module contract)."""
-    global launches
     _check(pos, row_ptr, col2d, nsub)
     if pos.device.type == "cpu":
         return p2p_plain(pos, row_ptr, col2d, nsub, eps2)
     if pos.device.type != "cuda":
         raise ValueError(f"no P2P path for device {pos.device}")
+    Gb, CB, _ = pos.shape
+    return launch(pos, row_ptr, col2d, nsub, eps2,
+                  block_order(row_ptr, Gb, CB, nsub, col2d.shape[1]))
+
+
+def launch(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
+           nsub: int, eps2: float, order: torch.Tensor | None):
+    """The kernel on CUDA tensors that :func:`_check` accepted, its CUDA
+    blocks in `order` (:func:`block_order`) or, with None, in grid order:
+    the same result either way.  Counts the launch."""
+    global launches
     Gb, CB, _ = pos.shape
     C = CB // nsub
     if C % 32 or nsub > 8:
@@ -98,18 +136,56 @@ def p2p(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
     if not (pos.is_contiguous() and row_ptr.is_contiguous()
             and col2d.is_contiguous()):
         raise ValueError("pos, row_ptr and col2d must be contiguous")
+    blocks = Gb * -(-CB // min(CB, BLOCK_SLOTS))
+    if order is not None and (order.dtype != torch.int32
+                              or order.shape != (blocks,)
+                              or order.device != pos.device):
+        raise ValueError(f"order must be int32 [{blocks}] on {pos.device}")
     lib = library.get()
-    launch = (lib.co_p2p_launch if pos.dtype == torch.float32
-              else lib.co_p2p_launch_f64)
+    fn = (lib.co_p2p_launch if pos.dtype == torch.float32
+          else lib.co_p2p_launch_f64)
+    if pos.data_ptr() % 16:              # the kernel copies 16-byte pieces
+        pos = pos.clone()
+    dmax = col2d.shape[1]
     out = torch.empty_like(pos)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
-    rc = launch(pos.data_ptr(), row_ptr.data_ptr(), col2d.data_ptr(),
-                out.data_ptr(), Gb, CB, nsub, col2d.shape[1], float(eps2),
-                stream)
+    rc = fn(pos.data_ptr(), row_ptr.data_ptr(), col2d.data_ptr(),
+            None if order is None else order.data_ptr(),
+            out.data_ptr(), Gb, CB, nsub, dmax, float(eps2), stream)
     if rc != 0:
         raise RuntimeError(f"P2P kernel launch failed: cudaError_t {rc}")
     launches += 1
     return out
+
+
+def pair_counts(pos: torch.Tensor, row_ptr: torch.Tensor,
+                col2d: torch.Tensor, nsub: int) -> dict:
+    """The work of one call, counted from its inputs: `entries` (partner
+    entries within the degrees, sentinel included), `pairs` (C targets x
+    C sources for every set mask bit of a real block: every slot pair,
+    pads included) and `real_pairs` (pairs whose target and source both
+    are real, x < PAD_X), and `bytes` (positions read once, the output
+    written once, the entries and row_ptr read once)."""
+    Gb, CB, dim = pos.shape
+    C = CB // nsub
+    dev = pos.device
+    shift = 32 - nsub
+    deg = (row_ptr[1:] - row_ptr[:-1]).clamp(max=col2d.shape[1])
+    cols = torch.arange(col2d.shape[1], device=dev)
+    rows, ks = torch.nonzero(cols[None, :] < deg[:, None], as_tuple=True)
+    v = col2d[rows, ks].to(torch.int64) & 0xFFFFFFFF
+    blk = (v & ((1 << shift) - 1)).clamp(max=Gb)
+    q = torch.arange(nsub, device=dev)
+    sel = (((v >> shift)[:, None] >> q) & 1) * (blk < Gb)[:, None]
+    real = (pos[..., 0] < PAD_X).reshape(Gb * nsub, C).sum(1)
+    real = torch.cat([real, real.new_zeros(nsub)])       # the sentinel
+    src = (sel * real[blk[:, None] * nsub + q]).sum(1)
+    item = pos.element_size()
+    return dict(entries=int(rows.shape[0]),
+                pairs=C * C * int(sel.sum()),
+                real_pairs=int((real[rows] * src).sum()),
+                bytes=2 * pos.numel() * item + 4 * (rows.shape[0]
+                                                    + row_ptr.shape[0]))
 
 
 def p2p_plain(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,

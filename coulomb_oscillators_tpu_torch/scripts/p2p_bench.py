@@ -1,0 +1,232 @@
+"""Time the P2P kernel at N = 1M beside its bounds, on the card.
+
+The cases are chip_smoke.py phase 3's four engines on the README's
+Gaussian beam (p = 6, r = 1.67, seed 0: the default engine, sub_depth = 0,
+dens_inhom = 0.25 and tree_L = 10) and phase 10's float64 engine (the
+uniform box, p = 5, r = 2, Morton sort).  For each case: the work counted
+from the inputs (``p2p_cuda.pair_counts``), the bounds
+(``utils.roofline.bound``), the kernel's time with its heavy-first block
+order and in grid order, and its deviation from the plain version.
+
+    python -m coulomb_oscillators_tpu_torch.scripts.p2p_bench \\
+        [--baseline OTHER.cu] [--agree-n 10000000] [--out FILE]
+
+``--baseline`` (repeatable) builds another ``p2p.cu`` (with or without
+the block-order argument in its C entry points, as its source declares)
+and times it on the same inputs in turns with this one (base, new, new,
+base), and holds the two against each other; the rows name it by its
+file name.  nvidia-smi's SM clock and power draw are sampled while a case
+is timed.  ``--agree-n`` also runs the default engine's case
+at that N (the kernel against the plain version, and timed).  Prints one
+JSON row per case and the card's name and power limit; runs on a CUDA
+card only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+X_STD = (0.003, 0.001, 0.01)
+
+
+def _cuda_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _rel_dev(a, b):
+    d = torch.linalg.vector_norm((a - b).reshape(-1, 3), dim=1).max()
+    return float(d / torch.linalg.vector_norm(b.reshape(-1, 3), dim=1).max())
+
+
+def _baseline(path):
+    """The launcher of another build of the kernel: its C entry points take
+    a block order if its source declares one, else none (the earlier
+    kernel's interface)."""
+    from coulomb_oscillators_tpu_torch import native
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    with open(path) as f:
+        ordered = "const int32_t* order" in f.read()
+    so, _ = native.build_library(path, "co_p2p_base",
+                                 [native.nvcc()] + native.NVCC_FLAGS)
+    lib = ctypes.CDLL(so)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn, eps in ((lib.co_p2p_launch, ctypes.c_float),
+                    (lib.co_p2p_launch_f64, ctypes.c_double)):
+        fn.argtypes = [vp] * (5 if ordered else 4) + [ci] * 4 + [eps, vp]
+        fn.restype = ci
+
+    def run(pblk, rp, col, nsub, eps2):
+        Gb, CB, _ = pblk.shape
+        out = torch.empty_like(pblk)
+        fn = (lib.co_p2p_launch if pblk.dtype == torch.float32
+              else lib.co_p2p_launch_f64)
+        order = ([p2p_cuda.block_order(rp, Gb, CB, nsub,
+                                       col.shape[1]).data_ptr()]
+                 if ordered else [])
+        rc = fn(pblk.data_ptr(), rp.data_ptr(), col.data_ptr(), *order,
+                out.data_ptr(), Gb, CB, nsub, col.shape[1], float(eps2),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{path}: launch failed: cudaError_t {rc}")
+        return out
+    return run
+
+
+class _Clocks:
+    """nvidia-smi's SM clock (MHz) and power draw (W), sampled in a
+    background thread while a case is timed."""
+
+    def __init__(self):
+        import threading
+        self.samples = []
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            r = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True)
+            try:
+                self.samples.append([float(x) for x in
+                                     r.stdout.strip().split(",")])
+            except ValueError:
+                pass
+            self._stop.wait(0.2)
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+
+    def summary(self):
+        if not self.samples:
+            return {}
+        a = np.array(self.samples)
+        return dict(sm_mhz_median=float(np.median(a[:, 0])),
+                    sm_mhz_min=float(a[:, 0].min()),
+                    power_w_median=float(np.median(a[:, 1])))
+
+
+def _engine(name, n):
+    from coulomb_oscillators_tpu_torch import SimConfig
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+    from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import KdFmmEngine
+    if name == "float64":
+        cfg = SimConfig(fmm_order=5, tree_radius=2.0, precision="float64")
+        pos = ID.init_uniform(n, (-0.01,) * 3, (0.01,) * 3).astype(np.float64)
+        return cfg, KdFmmEngine(cfg, n, sort_mode="morton"), pos
+    cfg = SimConfig(fmm_order=6, tree_radius=1.67)
+    u = tuple(w * x for w, x in zip(cfg.omega0, X_STD))
+    pos, _ = ID.init_gaussian(n, X_STD, u, seed=0)
+    if name == "dens_inhom=0.25":
+        cfg = cfg.replace(dens_inhom=0.25)
+    elif name == "tree_L=10":
+        cfg = cfg.replace(tree_L=10)
+    sub = {"sub_depth": 0} if name == "sub_depth=0" else {}
+    return cfg, KdFmmEngine(cfg, n, **sub), pos
+
+
+def case(name, n, dev, bases=(), reps=10):
+    """One case's row (see the module docstring); `bases` are (name,
+    launcher) pairs of other builds."""
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR
+    from coulomb_oscillators_tpu_torch.utils import roofline
+    cfg, eng, pos_h = _engine(name, n)
+    pos = torch.from_numpy(pos_h).to(dev)
+    fs = eng.build(pos)
+    pblk = eng.pad_array(pos, fs, fill=FAR).reshape(
+        eng.G_blk, eng.C_blk, 3).contiguous()
+    args = (pblk, fs.p2p_row_ptr, fs.p2p_col2d, eng.nsub, cfg.eps2)
+    double = pblk.dtype == torch.float64
+    counts = p2p_cuda.pair_counts(*args[:4])
+    b = roofline.bound(counts["real_pairs"], counts["bytes"], double=double)
+    row = dict(case=name, n=n, dtype=str(pblk.dtype).split(".")[-1],
+               Gb=eng.G_blk, CB=eng.C_blk, nsub=eng.nsub,
+               dmax=fs.p2p_col2d.shape[1], **counts, **b)
+    got = p2p_cuda.p2p(*args)
+    row["rel_dev_plain"] = _rel_dev(got, p2p_cuda.p2p_plain(*args))
+    kern = [lambda: p2p_cuda.p2p(*args),
+            lambda: p2p_cuda.launch(*args, order=None)]
+    for bname, run in bases:
+        row[f"rel_dev_{bname}"] = _rel_dev(run(*args), got)
+        kern.append(lambda run=run: run(*args))
+    # in turns: bases, kernel, grid order, grid order, kernel, bases
+    others = list(range(2, len(kern)))
+    seq = others + [0, 1, 1, 0] + others[::-1]
+    times = [[] for _ in kern]
+    with _Clocks() as clocks:
+        for k in seq:
+            times[k].append(_cuda_ms(kern[k], reps))
+    row.update(clocks.summary())
+    row["ms"] = float(np.mean(times[0]))
+    row["ms_grid_order"] = float(np.mean(times[1]))
+    row["ms_runs"] = times[0] + times[1]
+    for (bname, _), t in zip(bases, times[2:]):
+        row[f"{bname}_ms"] = float(np.mean(t))
+        row[f"{bname}_ms_runs"] = t
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["real_pairs_per_s"] = counts["real_pairs"] / row["ms"] * 1e3
+    return row
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", action="append", default=[])
+    ap.add_argument("--agree-n", type=int, default=0)
+    ap.add_argument("--cases", default="default,sub_depth=0,"
+                    "dens_inhom=0.25,tree_L=10,float64")
+    ap.add_argument("--out", default=None)
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("p2p_bench: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    bases = [(os.path.splitext(os.path.basename(p))[0], _baseline(p))
+             for p in a.baseline]
+    rows = []
+    for name in a.cases.split(","):
+        row = case(name, 1_000_000, dev, bases,
+                   reps=3 if name == "float64" else 10)
+        row["card"] = smi
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    if a.agree_n:
+        row = case("default", a.agree_n, dev, reps=3)
+        row["card"] = smi
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    if a.out:
+        with open(a.out, "w") as f:
+            json.dump(rows, f, indent=1)
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

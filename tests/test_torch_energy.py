@@ -173,7 +173,7 @@ def test_kd_potential_ncoll_and_fmm_energy(beam):
     assert int(fs.p2p_valid.sum()) == 0
     assert bool(torch.isfinite(eng.potential(tpos, fs)).all())
     eng = KdFmmEngine(cfg, N_KD)
-    st = particle_state_from_numpy(pos, vel)
+    st = particle_state_from_numpy(pos, vel, device="cpu")
     e_fmm = float(TM.total_energy_fmm(cfg, st, eng, eng.build(tpos)))
     e_ref = TE.total_energy_f64(pos, vel, cfg.eps2, cfg.kappa(N_KD),
                                 cfg.omega0_sq())

@@ -8,6 +8,8 @@ is plain jnp); the reference's Pallas kernel is never called.  Its forces
 come from its default CPU engine (jnp scan near field).
 """
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -171,6 +173,51 @@ def test_accuracy_vs_direct():
     eng = KdFmmEngine(cfg, n)
     err = float(mean_rel_err(eng.force(tpos, eng.build(tpos)), ref))
     assert err < 1e-3, err
+
+
+def test_accuracy_improves_with_radius():
+    """Twin of tests/test_fmm_kd.py::test_accuracy_improves_with_radius:
+    N=1500 beam, p=3; the error against the port's Kahan oracle at r=2.5
+    is under half the error at r=1.0."""
+    n = 1500
+    pos, _ = _beam(n)
+    tpos = torch.from_numpy(pos)
+    errs = []
+    for r in (1.0, 2.5):
+        cfg = TConfig(fmm_order=3, tree_radius=r)
+        ref = TD.direct_kahan(tpos, cfg.eps2, cfg.kappa(n))
+        eng = KdFmmEngine(cfg, n)
+        errs.append(float(mean_rel_err(eng.force(tpos, eng.build(tpos)),
+                                       ref)))
+    assert errs[1] < errs[0] * 0.5, errs
+
+
+def test_native_library_is_the_ports_own_copy():
+    """native.SRC lies inside the port's package, and its library gives the
+    reference library's kd permutation and fine traversal lists on the same
+    seeded input."""
+    from coulomb_oscillators_tpu import native as jnative
+    from coulomb_oscillators_tpu_torch import native as tnative
+    pkg = os.path.dirname(os.path.abspath(tfmm.__file__))
+    pkg = os.path.dirname(os.path.dirname(pkg))          # the port package
+    assert os.path.commonpath([tnative.SRC, pkg]) == pkg
+    assert os.path.basename(tnative.SRC) == "co_native.cpp"
+    if jnative.get_lib() is None:
+        pytest.skip("the reference's native library does not build here")
+    pos, _ = _beam(3000, seed=5)
+    L = 6
+    perm = tnative.kdtree_build(pos, L)
+    assert np.array_equal(perm, jnative.kdtree_build(pos, L))
+    geo = tnative.node_geometry(pos[perm], L)
+    for a, b in zip(geo, jnative.node_geometry(pos[perm], L)):
+        assert np.array_equal(a, b)
+    center, lb, rb, _ = geo
+    mult = np.concatenate([np.diff((np.arange((1 << l) + 1) * 3000) >> l)
+                           for l in range(L + 1)]).astype(np.int32)
+    args = (center, lb, rb, mult, L, 2, 3000, 3, 3, 1.7, True)
+    for a, b in zip(tnative.traverse_fine(*args),
+                    jnative.traverse_fine(*args)):
+        assert a.shape[0] > 0 and np.array_equal(a, b)
 
 
 def test_stale_margin_inflates_lists():

@@ -89,7 +89,7 @@ def test_integrator_step_matches(name):
     jstep = JI.make_step(lambda p: JE.elastic(p, w2), name, 5e-3)
     tstep = TI.make_step(lambda p: TE.elastic(p, w2), name, 5e-3)
     js = JState(jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(acc))
-    ts = particle_state_from_numpy(pos, vel, acc)
+    ts = particle_state_from_numpy(pos, vel, acc, device="cpu")
     for _ in range(3):
         js, ts = jstep(js), tstep(ts)
     # f32 elementwise arithmetic in the same order; 1e-6 allows XLA's
@@ -116,8 +116,29 @@ def test_elastic_and_reductions_match():
 
 def test_particle_state_create():
     pos = np.ones((4, 3), np.float32)
-    st = TState.create(pos, 2 * pos)
+    st = TState.create(pos, 2 * pos, device="cpu")
     assert st.n == 4 and st.dim == 3 and float(st.acc.abs().sum()) == 0.0
+    # a tensor keeps its device without a device argument
+    assert TState.create(st.pos, st.vel).pos.device.type == "cpu"
+
+
+@pytest.mark.parametrize("build", [
+    lambda p, v, **kw: particle_state_from_numpy(p, v, **kw),
+    lambda p, v, **kw: TState.create(p, v, **kw)],
+    ids=["particle_state_from_numpy", "ParticleState.create"])
+def test_state_builders_default_to_the_card(build):
+    """Host arrays go to cuda:0 unless a device is named: without a card
+    the default raises (never a quiet CPU state); device="cpu" works."""
+    pos = np.ones((4, 3), np.float32)
+    if torch.cuda.is_available():
+        st = build(pos, 2 * pos)
+        assert all(t.device == torch.device("cuda", 0) for t in st)
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            build(pos, 2 * pos)
+    st = build(pos, 2 * pos, device="cpu")
+    assert all(t.device.type == "cpu" for t in st)
+    assert torch.equal(st.vel, torch.from_numpy(2 * pos))
 
 
 @pytest.fixture(scope="module")

@@ -51,7 +51,7 @@ def test_trajectory_matches_reference(beam, kw):
     ref = np.asarray(js.run(st, steps).pos)
     ts = TSim(TConfig(**cfg), N)
     try:
-        st = ts.init_acc(particle_state_from_numpy(pos, vel))
+        st = ts.init_acc(particle_state_from_numpy(pos, vel, device="cpu"))
         out = ts.run(st, steps)
     finally:
         ts.close()
@@ -76,14 +76,15 @@ def test_resume_and_advance_padded(beam):
     try:
         with pytest.raises(RuntimeError):
             sim.advance_padded(1)
-        st = sim.init_acc(particle_state_from_numpy(pos, vel))
+        st = sim.init_acc(particle_state_from_numpy(pos, vel, device="cpu"))
         a = sim.run(st, 3)
         b = sim.run(a, 2)                       # resumes the padded run
         sim.advance_padded(1)
         c = sim.current_state()
         assert c.pos.shape == (N, 3) and np.isfinite(c.pos.numpy()).all()
         assert not torch.equal(b.pos, c.pos)
-        d = sim.run(particle_state_from_numpy(pos, vel), 1)   # restart
+        # restart
+        d = sim.run(particle_state_from_numpy(pos, vel, device="cpu"), 1)
         assert np.isfinite(d.pos.numpy()).all()
     finally:
         sim.close()
@@ -102,7 +103,7 @@ def test_auto_stale_margin_matches(beam, kw):
 
 def test_stale_margin_config(beam):
     pos, vel = beam
-    st = particle_state_from_numpy(pos, vel)
+    st = particle_state_from_numpy(pos, vel, device="cpu")
     sim = TSim(TConfig(stale_margin=0.0), N)
     sim._set_stale_margin(st)
     assert sim._fmm.stale_margin_abs == 0.0
@@ -169,7 +170,8 @@ def test_engine_trajectories_match_reference(engine, kw):
     ref = _reference_run(cfg, pos, vel, engine, 7)
     ts = TSim(TConfig(**cfg), n, engine=engine)
     try:
-        out = ts.run(ts.init_acc(particle_state_from_numpy(pos, vel)), 7)
+        out = ts.run(ts.init_acc(particle_state_from_numpy(
+            pos, vel, device="cpu")), 7)
     finally:
         ts.close()
     got = out.pos.numpy()

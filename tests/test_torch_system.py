@@ -35,7 +35,8 @@ def _beam(config, n):
 
 def _make_state(config, n):
     pos, vel = _beam(config, n)
-    return M.init_accelerations(config, particle_state_from_numpy(pos, vel))
+    return M.init_accelerations(
+        config, particle_state_from_numpy(pos, vel, device="cpu"))
 
 
 def test_energy_drift_direct_512():
@@ -100,7 +101,7 @@ def test_simulator_plain_trajectory_matches_reference(engine):
                             jnp.zeros((n, 3), jnp.float32)))
     ref = np.asarray(js.run(st, 20).pos)
     ts = Simulator(SimConfig(**cfg), n, engine=engine)
-    st = ts.init_acc(particle_state_from_numpy(pos, vel))
+    st = ts.init_acc(particle_state_from_numpy(pos, vel, device="cpu"))
     got = ts.run(st, 20).pos.numpy()
     ts.close()
     dev = np.abs(got - ref).max() / np.abs(ref).max()
@@ -119,7 +120,8 @@ def test_oscillator_force_and_step_match_reference():
     assert np.abs(ta.numpy() - ja).max() / np.abs(ja).max() <= 1e-5
     js = JM.init_accelerations(jc, JState(jnp.asarray(pos), jnp.asarray(vel),
                                           jnp.zeros((n, 3), jnp.float32)))
-    ts = M.init_accelerations(tc, particle_state_from_numpy(pos, vel))
+    ts = M.init_accelerations(
+        tc, particle_state_from_numpy(pos, vel, device="cpu"))
     js = JM.make_step_fn(jc, n, "direct")(js)
     ts = M.make_step_fn(tc, n, "direct")(ts)
     for a, b in zip(ts, js):

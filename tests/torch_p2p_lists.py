@@ -1,0 +1,73 @@
+"""Seeded synthetic inputs of the P2P pass, and a float64 numpy sum over
+them, shared by ``test_torch_p2p_plain.py`` (CPU) and
+``test_torch_p2p_cuda.py`` (the card).  No JAX."""
+
+import numpy as np
+
+FAR = 1e18
+
+
+def synthetic(nsub, CB, Gb=6, dtype=np.float32, seed=0, deg_hi=6,
+              long_row=0):
+    """(pos [Gb, CB, 3], row_ptr [Gb*nsub+1] int32, col2d [Gb*nsub, dmax]
+    int32) with FAR pads trailing each sub-leaf (one sub-leaf full, one all
+    pads), a row of degree 0, a full row holding every lane-group mask 0
+    .. 2^nsub - 1 of block 0, a row of degree `long_row` (if set), a row
+    whose degree is above dmax (clamped), the sentinel block id Gb and
+    mask 0 among the random entries, and random values past each degree
+    (never read)."""
+    rng = np.random.default_rng(seed)
+    C = CB // nsub
+    G = Gb * nsub
+    pos = rng.normal(scale=0.01, size=(Gb, nsub, C, 3))
+    nreal = rng.integers(0, C + 1, size=(Gb, nsub))
+    nreal[0, 0] = nreal[1 // nsub, 1 % nsub] = C
+    nreal[-1, -1] = 0
+    pos[np.arange(C)[None, None, :] >= nreal[..., None]] = FAR
+    pos = pos.reshape(Gb, CB, 3).astype(dtype)
+    masks = np.arange(1 << nsub, dtype=np.uint64)
+    deg = rng.integers(0, deg_hi + 1, size=G)
+    deg[0] = 0
+    deg[1] = len(masks)
+    if long_row:
+        deg[2] = long_row
+    dmax = int(deg.max())
+    deg[3] = dmax + 7
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    blk = rng.integers(0, Gb + 1, size=(G, dmax)).astype(np.uint64)
+    bits = rng.integers(0, 1 << nsub, size=(G, dmax)).astype(np.uint64)
+    bits[1, :len(masks)] = masks
+    blk[1, :len(masks)] = 0                  # full rows: real pairs exist
+    col = (blk | (bits << np.uint64(32 - nsub))).astype(np.uint32)
+    return pos, row_ptr, col.view(np.int32)
+
+
+def brute(pos, row_ptr, col2d, nsub, eps2):
+    """The near-field sum in float64, one partner entry at a time."""
+    Gb, CB, _ = pos.shape
+    C = CB // nsub
+    shift = 32 - nsub
+    p = pos.astype(np.float64)
+    src = np.concatenate([p, np.full((1, CB, 3), FAR)])
+    tgt = p.reshape(Gb * nsub, C, 3)
+    out = np.zeros_like(tgt)
+    cols = col2d.view(np.uint32)
+    for row in range(Gb * nsub):
+        for e in range(min(row_ptr[row + 1] - row_ptr[row], cols.shape[1])):
+            v = int(cols[row, e])
+            blk, bits = v & ((1 << shift) - 1), v >> shift
+            groups = [q for q in range(nsub) if (bits >> q) & 1]
+            if not groups:
+                continue
+            s = src[blk].reshape(nsub, C, 3)[groups].reshape(-1, 3)
+            d = tgt[row][:, None, :] - s[None, :, :]
+            r = 1.0 / np.sqrt(eps2 + (d * d).sum(-1))
+            out[row] += (d * (r * r * r)[..., None]).sum(1)
+    return out.reshape(Gb, CB, 3)
+
+
+def rel_dev(got, ref):
+    """max row-norm of got - ref over the max row-norm of ref."""
+    d = np.linalg.norm((np.asarray(got, np.float64) - ref).reshape(-1, 3),
+                       axis=1)
+    return float(d.max() / np.linalg.norm(ref.reshape(-1, 3), axis=1).max())
