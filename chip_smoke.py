@@ -25,10 +25,12 @@ p=6, r=1.67), and the CLI's direct engine at its default N=30001.
      adopt background re-sorts with a repad); positions stay finite and
      the P2P kernel's launch count equals the number of force evaluations;
   6. the direct kernel: at n=1000 (dims 2 and 3) against Kahan, mean
-     relative error <= 1e-6; at N=30001 (the CLI's 3D Gaussian beam and
-     2D KV beam) against the plain version, max|da| / max|a| <= 1e-5, and
-     against Kahan within max(1e-5, 2x the plain version's error), with
-     CUDA-event times of both;
+     relative error <= 1e-6; on the CLI's 3D Gaussian beam at N=4096
+     (ladder 1), 30001 (the CLI's default) and 262144, and on its 2D KV
+     beam at N=30001, against the plain version, max|da| / max|a| <=
+     1e-5, with CUDA-event times of both, the split count, the bound
+     (utils/roofline.py) and the kernel's share of it; at N=30001 also
+     against Kahan, within max(1e-5, 2x the plain version's error);
   7. the CLI on the card (cli.main): a 3D direct run with snapshots, a
      resume from its last snapshot, a 2D direct run (float64 files), and
      -test; snapshot names and byte sizes as the reference writes them, and
@@ -77,6 +79,9 @@ WINDOWS = 4
 P2P_TOL = 1e-5          # the reference's own kernel contract
 FORCE_TOL = 1e-3        # mean relative force error against Kahan
 N_CLI = 30001           # the CLI's default -n
+# the direct kernel's cases (dim, N): the CLI's 3D beam at ladder 1's N,
+# the CLI's N and a large N; the CLI's 2D beam at its N
+DIRECT_CASES = ((3, 4096), (3, N_CLI), (3, 262144), (2, N_CLI))
 DIRECT_KAHAN_TOL = 1e-6  # direct kernel vs Kahan at n=1000 (test_direct.py)
 DRIFT_TOL = 1e-6        # energy drift bound (README north star)
 POT_TOL = 2e-3          # FMM potential vs Kahan rows (test_fmm_kd.py)
@@ -620,44 +625,51 @@ def main() -> int:
         _require(e <= DIRECT_KAHAN_TOL, f"direct n=1000 dim={dim} vs Kahan "
                  f"{e:.3e} <= {DIRECT_KAHAN_TOL}")
     beams = _cli_beams(N_CLI)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     direct_rows = {}
-    for dim in (3, 2):
-        c, ph, _ = beams[dim]
+    for dim, n in DIRECT_CASES:
+        c, ph, _ = beams[dim] if n == N_CLI else _cli_beams(n)[dim]
         p = torch.from_numpy(ph).to(dev)
-        eps2, kap = c.eps2, c.kappa(N_CLI)
+        eps2, kap = c.eps2, c.kappa(n)
         got = D.direct(p, eps2, kap)
         plain = D.direct_plain(p, eps2, kap)
-        kahan = D.direct_kahan(p, eps2, kap)
         rel, mabs = _rel_dev(got, plain)
-        e_k = float(mean_rel_err(got, kahan))
-        e_p = float(mean_rel_err(plain, kahan))
-        ms = _cuda_ms(lambda: D.direct(p, eps2, kap), 20, torch)
-        plain_ms = _cuda_ms(lambda: D.direct_plain(p, eps2, kap), 3, torch)
-        pairs = N_CLI * N_CLI
+        big = n > N_CLI
+        ms = _cuda_ms(lambda: D.direct(p, eps2, kap), 3 if big else 20,
+                      torch)
+        plain_ms = _cuda_ms(lambda: D.direct_plain(p, eps2, kap),
+                            1 if big else 3, torch)
+        pairs = n * n
         b = roofline.bound(pairs, 2 * p.numel() * 4, dim=dim)
-        print(f"direct N={N_CLI} dim={dim} bound {b['bound_ms']:.4f} ms "
+        row = dict(dim=dim, n=n,
+                   splits=D.splits_for(n, sm_count, *D.geometry(dim)),
+                   max_rel_err=rel, max_abs_err=mabs,
+                   max_abs_ref=float(plain.abs().max()), ms=ms,
+                   plain_ms=plain_ms, pairs=pairs, bound_ms=b["bound_ms"],
+                   bound_by=b["bound_by"], bound_share=b["bound_ms"] / ms)
+        text = ""
+        if n == N_CLI:            # the CLI's size: also against Kahan
+            kahan = D.direct_kahan(p, eps2, kap)
+            row["kahan_mean_rel_err"] = e_k = float(mean_rel_err(got, kahan))
+            row["plain_kahan_mean_rel_err"] = e_p = float(
+                mean_rel_err(plain, kahan))
+            text = f"; mean rel err vs Kahan kernel {e_k:.3e} plain {e_p:.3e}"
+            _require(e_k <= max(1e-5, 2 * e_p), f"direct dim={dim} vs Kahan "
+                     f"{e_k:.3e} <= max(1e-5, 2 x {e_p:.3e})")
+        print(f"direct N={n} dim={dim} bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']}: {roofline.FLOPS_PER_PAIR[dim]} flops and "
               f"one special-function op a pair; kernel at "
-              f"{100 * b['bound_ms'] / ms:.1f}%) splits="
-              f"{D.splits_for(N_CLI, torch.cuda.get_device_properties(dev).multi_processor_count)}: "
-              f"kernel vs plain rel_dev={rel:.3e} max_abs={mabs:.3e}; mean "
-              f"rel err vs Kahan kernel {e_k:.3e} plain {e_p:.3e}; "
-              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+              f"{100 * row['bound_share']:.1f}%) splits={row['splits']}: "
+              f"kernel vs plain rel_dev={rel:.3e} max_abs={mabs:.3e}{text}; "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
               f"kernel_Gpairs_per_s={pairs / ms / 1e6:.1f} "
               f"plain_Gpairs_per_s={pairs / plain_ms / 1e6:.2f}")
-        _require(bool(torch.isfinite(got).all()), "finite direct output")
-        _require(rel <= P2P_TOL, f"direct dim={dim} vs plain {rel:.3e} <= "
-                 f"{P2P_TOL}")
-        _require(e_k <= max(1e-5, 2 * e_p), f"direct dim={dim} vs Kahan "
-                 f"{e_k:.3e} <= max(1e-5, 2 x {e_p:.3e})")
-        direct_rows[dim] = dict(dim=dim, max_rel_err=rel, max_abs_err=mabs,
-                                max_abs_ref=float(plain.abs().max()),
-                                kahan_mean_rel_err=e_k,
-                                plain_kahan_mean_rel_err=e_p, ms=ms,
-                                plain_ms=plain_ms, pairs=pairs,
-                                bound_ms=b["bound_ms"],
-                                bound_by=b["bound_by"],
-                                bound_share=b["bound_ms"] / ms)
+        _require(bool(torch.isfinite(got).all()) and got.shape == (n, dim),
+                 f"finite [{n}, {dim}] direct output")
+        _require(rel <= P2P_TOL, f"direct N={n} dim={dim} vs plain "
+                 f"{rel:.3e} <= {P2P_TOL}")
+        direct_rows[dim, n] = row
+        del p, got, plain
     _phase("direct", t0)
 
     # ---- 7. the CLI on the card ----------------------------------------
@@ -795,7 +807,7 @@ def main() -> int:
              "the N=1M kd builds of phases 3-5 went through co_native")
     _phase("native", t0)
 
-    row, drow = p2p_rows[0], direct_rows[3]
+    row, drow = p2p_rows[0], direct_rows[3, N_CLI]
     # no single PyTorch call computes a masked leaf-pair sum or an
     # all-pairs softened Coulomb sum, so library_ms is null
     bound_keys = ("bound_ms", "bound_by", "bound_share")
@@ -829,7 +841,7 @@ def main() -> int:
          "max_rel_err": drow["max_rel_err"], "ms": drow["ms"],
          "plain_ms": drow["plain_ms"], "pairs": drow["pairs"],
          **{k: drow[k] for k in bound_keys}, "library_ms": None,
-         "cases": [direct_rows[3], direct_rows[2]]}]}))
+         "cases": [direct_rows[c] for c in DIRECT_CASES]}]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,7 @@ matmuls, so they stay in full float32 on any device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -34,38 +35,71 @@ from coulomb_oscillators_tpu_torch import native
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "direct.cu")
 
-# kernel launches made through :func:`direct`; counted nowhere else
+# kernel launches made through :func:`launch` (which :func:`direct`
+# calls); counted nowhere else
 launches = 0
 
-_TILE = 256                # sources per tile = targets per CUDA block
-_BLOCKS_PER_SM = 8         # resident 256-thread blocks the splits aim at
+# a split's source range is a multiple of this
+SPLIT_UNIT = 32
 
 
 def _bind(lib) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.co_direct_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, cf, vp]
     lib.co_direct_launch.restype = ci
+    lib.co_direct_geometry.argtypes = [ci, vp, vp]
+    lib.co_direct_geometry.restype = ci
 
 
 # csrc/direct.cu, built at first use
 library = native.CudaLibrary(SRC, "co_direct", _bind)
+_geometry = {}
+_sm_count = {}
 
 
-def splits_for(n: int, sm_count: int) -> tuple:
-    """(S, tiles_per_split): the source range of ceil(n/256) tiles cut
-    into S splits, enough that the grid of ceil(n/256) x S blocks keeps
-    about 8 blocks resident per SM."""
-    tiles = -(-n // _TILE)
-    want = max(1, -(-(sm_count * _BLOCKS_PER_SM) // tiles))
-    per = -(-tiles // min(want, tiles))
-    return -(-tiles // per), per
+def geometry(dim: int, lib=None) -> tuple:
+    """(targets per CUDA block, resident blocks a SM) of the kernel in
+    `dim` on the current device, as the built library (or `lib`, another
+    build) reports them."""
+    key = (dim, lib)
+    if key not in _geometry:
+        src = library.get() if lib is None else lib
+        t, b = ctypes.c_int(), ctypes.c_int()
+        rc = src.co_direct_geometry(dim, ctypes.byref(t), ctypes.byref(b))
+        if rc != 0 or b.value < 1:
+            raise RuntimeError(f"direct kernel geometry query failed: "
+                               f"cudaError_t {rc}")
+        _geometry[key] = (t.value, b.value)
+    return _geometry[key]
+
+
+@functools.lru_cache(maxsize=256)
+def splits_for(n: int, sm_count: int, targets_per_block: int,
+               blocks_per_sm: int) -> tuple:
+    """(S, per): the n sources cut into S splits of `per` (a multiple of
+    32; the last split shorter).  Of the split counts up to
+    max(4, 4 x the card's resident slots / the target blocks), the one
+    whose grid of ceil(n / targets_per_block) x S blocks fills its last
+    wave of resident slots (blocks_per_sm a SM) best; the fewest splits
+    among equals."""
+    blocks = -(-n // targets_per_block)
+    slots = sm_count * blocks_per_sm
+    best = None
+    for want in range(1, min(max(4, 4 * slots // blocks),
+                             -(-n // SPLIT_UNIT)) + 1):
+        per = -(-n // want)                          # ceil(n / want)
+        per = -(-per // SPLIT_UNIT) * SPLIT_UNIT     # up to the unit
+        S = -(-n // per)
+        fill = blocks * S / (-(-(blocks * S) // slots) * slots)
+        if best is None or fill > best[0] + 1e-12:
+            best = (fill, S, per)
+    return best[1], best[2]
 
 
 def direct(pos: torch.Tensor, eps2: float, kappa: float) -> torch.Tensor:
     """O(N^2) pairwise force [N, D] -> [N, D], D in {2, 3} (the reference
     kernel's dims; :func:`direct_plain` also takes 4D).  CPU tensors take
     :func:`direct_plain`; CUDA tensors take the kernel, float32 only."""
-    global launches
     if pos.dim() != 2 or pos.shape[1] not in (2, 3):
         raise ValueError(f"unsupported dim: pos must be [N, 2] or [N, 3], "
                          f"got {tuple(pos.shape)}")
@@ -75,10 +109,29 @@ def direct(pos: torch.Tensor, eps2: float, kappa: float) -> torch.Tensor:
         raise ValueError(f"the direct kernel takes float32, got {pos.dtype}")
     if pos.device.type != "cuda":
         raise ValueError(f"no direct path for device {pos.device}")
+    return launch(pos, eps2, kappa)
+
+
+def launch(pos: torch.Tensor, eps2: float, kappa: float,
+           splits: int | None = None) -> torch.Tensor:
+    """The kernel on a float32 CUDA tensor [N, D] that :func:`direct`
+    accepted, with the source range cut into `splits` (None: the
+    :func:`splits_for` rule); every split count gives the same sum to
+    rounding.  Counts the launch."""
+    global launches
     n, dim = pos.shape
     pos = pos.contiguous()
-    S, per = splits_for(
-        n, torch.cuda.get_device_properties(pos.device).multi_processor_count)
+    if splits is None:
+        if pos.device not in _sm_count:
+            _sm_count[pos.device] = torch.cuda.get_device_properties(
+                pos.device).multi_processor_count
+        S, per = splits_for(n, _sm_count[pos.device], *geometry(dim))
+    else:
+        per = -(-n // splits)
+        S = -(-n // per)
+        if S != splits:
+            raise ValueError(f"{splits} splits of {n} sources leave one "
+                             f"empty")
     lib = library.get()
     out = torch.empty_like(pos)
     part = torch.empty((S, n, dim), dtype=pos.dtype, device=pos.device) \

@@ -37,7 +37,9 @@ import torch
 X_STD = (0.003, 0.001, 0.01)
 
 
-def _cuda_ms(fn, reps):
+def cuda_ms(fn, reps):
+    """CUDA-event ms of one call of `fn`, the mean over `reps` calls after
+    one warm-up call."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -89,7 +91,7 @@ def _baseline(path):
     return run
 
 
-class _Clocks:
+class Clocks:
     """nvidia-smi's SM clock (MHz) and power draw (W), sampled in a
     background thread while a case is timed."""
 
@@ -177,9 +179,9 @@ def case(name, n, dev, bases=(), reps=10):
     others = list(range(2, len(kern)))
     seq = others + [0, 1, 1, 0] + others[::-1]
     times = [[] for _ in kern]
-    with _Clocks() as clocks:
+    with Clocks() as clocks:
         for k in seq:
-            times[k].append(_cuda_ms(kern[k], reps))
+            times[k].append(cuda_ms(kern[k], reps))
     row.update(clocks.summary())
     row["ms"] = float(np.mean(times[0]))
     row["ms_grid_order"] = float(np.mean(times[1]))

@@ -17,6 +17,8 @@ torch.set_num_threads(1)
 
 EPS2 = 1e-18
 KAPPA = 2e-6 / 1000
+# csrc/direct.cu's (targets per CUDA block, resident blocks a SM) by dim
+KERNEL_GEOMETRY = {2: (1024, 4), 3: (2048, 2)}
 
 
 def _numpy_direct(pos, eps2, kappa, dim):
@@ -113,14 +115,34 @@ def test_direct_wrapper_refusals():
     assert out.dtype == torch.float64 and TD.launches == before
 
 
+@pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("sm", [1, 132])
 @pytest.mark.parametrize("n", [1, 255, 257, 1000, 30001, 1_000_000])
-def test_splits_cover_every_tile_once(n, sm):
-    """The kernel's source splits: S contiguous runs of `per` tiles that
-    cover all ceil(n/256) tiles, none empty, within the grid's y limit."""
-    S, per = TD.splits_for(n, sm)
-    tiles = -(-n // 256)
-    assert 1 <= S <= 65535 and per >= 1
-    assert S * per >= tiles and (S - 1) * per < tiles
+def test_splits_cover_every_tile_once(n, sm, dim):
+    """The kernel's source splits: S contiguous runs of `per` sources (a
+    multiple of 32) that cover all n sources, none empty, within the
+    grid's y limit; the grid of target blocks x S fills its last wave of
+    the card's resident slots to >= 90% from the CLI's N up.  The
+    geometry is the kernel's on the H100 (tests/test_torch_direct_cuda.py
+    checks it)."""
+    tpb, bps = KERNEL_GEOMETRY[dim]
+    S, per = TD.splits_for(n, sm, tpb, bps)
+    blocks = -(-n // tpb)
+    slots = sm * bps
+    assert 1 <= S <= 65535 and per >= 1 and per % 32 == 0
+    assert S * per >= n and (S - 1) * per < n
+    fill = blocks * S / (-(-(blocks * S) // slots) * slots)
+    if sm == 132 and n >= 30001:
+        assert fill >= 0.9, fill
     if sm == 132 and n == 30001:
-        assert tiles * S >= 132 * 8        # fills the card at the CLI's N
+        assert blocks == (15 if dim == 3 else 30)
+        assert blocks * S >= 0.9 * slots   # fills the card at the CLI's N
+
+
+def test_forced_splits_refuse_an_empty_split():
+    """A forced split count that would leave a split empty raises before
+    anything is built or launched."""
+    before = TD.launches
+    with pytest.raises(ValueError, match="empty"):
+        TD.launch(torch.zeros(5, 3), EPS2, KAPPA, splits=4)
+    assert TD.launches == before

@@ -101,3 +101,70 @@ def test_direct_simulator_cuda_matches_cpu(cuda):
         assert D.launches - before == expected
     dev = np.abs(outs[1] - outs[0]).max() / np.abs(outs[0]).max()
     assert dev <= 1e-5, dev
+
+
+def _beam(n, dim, seed=7):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(n, dim)).astype(np.float32) * 0.01
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, "tile-1", "tile",
+                               "tile+1", 4097, 30001])
+def test_kernel_matches_plain_at_ragged_n(cuda, dim, n):
+    """Ragged sizes around the source tile (256), one target block's
+    worth of targets (the kernel's geometry) and the split unit: max|da| /
+    max|a| <= 1e-5 against the plain version.  A lone particle feels
+    nothing: exactly 0."""
+    if isinstance(n, str):
+        n = D.geometry(dim)[0] + {"tile-1": -1, "tile": 0,
+                                  "tile+1": 1}[n]
+    p = torch.from_numpy(_beam(n, dim)).to(cuda)
+    got = D.direct(p, 1e-18, 2e-9)
+    ref = D.direct_plain(p, 1e-18, 2e-9)
+    assert got.shape == (n, dim) and bool(torch.isfinite(got).all())
+    if n == 1:
+        assert bool((got == 0).all())
+        return
+    dev = _rel_dev(got, ref)
+    assert dev <= 1e-5, dev
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_kernel_is_bitwise_repeatable(cuda, dim):
+    """Two calls on the same input give the same bits: the splits are
+    summed in a fixed order, with no atomics."""
+    p = torch.from_numpy(_beam(30001, dim)).to(cuda)
+    a = D.direct(p, 1e-18, 2e-9)
+    b = D.direct(p, 1e-18, 2e-9)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 17, 64, 129])
+def test_kernel_forced_splits(cuda, dim, splits):
+    """Every split count the C entry point takes gives the plain sum
+    (<= 1e-5), and each call counts one launch."""
+    n = 4097
+    p = torch.from_numpy(_beam(n, dim)).to(cuda)
+    before = D.launches
+    got = D.launch(p, 1e-18, 2e-9, splits=splits)
+    assert D.launches == before + 1
+    dev = _rel_dev(got, D.direct_plain(p, 1e-18, 2e-9))
+    assert dev <= 1e-5, dev
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_kernel_coincident_pair_is_exactly_zero(cuda, dim):
+    """Two particles at one point with eps2 > 0: d = 0 and dist2 = eps2,
+    so each feels a finite, exactly zero force."""
+    p = torch.full((2, dim), 3e-3, dtype=torch.float32, device=cuda)
+    got = D.direct(p, 1e-18, 2e-9)
+    assert bool(torch.isfinite(got).all()) and bool((got == 0).all())
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_kernel_geometry_matches_the_split_rule(cuda, dim):
+    """The kernel's geometry on the card is the one the CPU tests of the
+    split rule assume (tests/test_torch_direct.py::KERNEL_GEOMETRY)."""
+    assert D.geometry(dim) == {2: (1024, 4), 3: (2048, 2)}[dim]
