@@ -20,9 +20,9 @@ p=6, r=1.67), and the CLI's direct engine at its default N=30001.
   4. accuracy: engine.force at N=1M against the Kahan direct oracle on
      1,000 seeded targets, mean relative error <= 1e-3;
   5. simulator: a small run on the card against the same run on the CPU,
-     then init_acc + 4 windows of tree_steps=8 at N=1M with the default
-     async rebuild pipeline (the first boundary primes it, the next two
-     adopt background re-sorts with a repad); positions stay finite and
+     then init_acc + 3 windows of tree_steps=8 at N=1M with the default
+     async rebuild pipeline (the first boundary primes it, the next one
+     adopts a background re-sort with a repad); positions stay finite and
      the P2P kernel's launch count equals the number of force evaluations;
   6. the direct kernel: at n=1000 (dims 2 and 3) against Kahan, mean
      relative error <= 1e-6; on the CLI's 3D Gaussian beam at N=4096
@@ -56,7 +56,24 @@ p=6, r=1.67), and the CLI's direct engine at its default N=30001.
      oracle (<= 1e-3), and a Simulator run with tree_async_build="device"
      over 3 windows of 8 steps (one device rebuild adopted; P2P launches ==
      force evaluations);
- 11. the native library: every N=1M kd build of phases 3-5 went through
+ 11. bench: scripts.bench in --quick mode at N=1M, full width (p=6,
+     r=1.67, boost 1.5): the fresh-tree error and every measured step of
+     the reuse window at the tuned cadence (16 / 2 / 2) <= 1e-3 against
+     the Kahan oracle on 2048 targets, the headline timed at the tuned and
+     at the default cadence (8 / 1 / 1), finite state, and the P2P
+     kernel's launch count equals the force evaluations the bench made;
+     the bench's JSON is printed on a line of its own;
+ 12. profile: scripts.profile_force stage rows (CUDA events) for fmm3_kd
+     at N=1M (p=6, r=1.67) and fmm2_kd at N=100k (p=4, r=2) with each
+     stage's own kernel time beside them, the stage sum within 0.8-1.5x of
+     the padded force by kernel times (0.8-3.0x by CUDA-event times, which
+     hold the host's launch gaps); a torch.profiler trace of 3
+     padded force calls whose kernel histogram names the P2P kernel; P2P
+     launches == the profile's own count of its force evaluations;
+ 13. viewer: the port's CLI writes 2 snapshots on the card, the port's
+     view renders them, the PNGs decode to 792 x 792 with a non-empty red
+     channel;
+ 14. the native library: every N=1M kd build of phases 3-5 went through
      co_native, none through the numpy traversal.
 
 Any failure raises: the script then exits non-zero without its last line.
@@ -75,7 +92,7 @@ N = 1_000_000
 X_STD = (0.003, 0.001, 0.01)
 SEED = 0
 N_TARGETS = 1000
-WINDOWS = 4
+WINDOWS = 3
 P2P_TOL = 1e-5          # the reference's own kernel contract
 FORCE_TOL = 1e-3        # mean relative force error against Kahan
 N_CLI = 30001           # the CLI's default -n
@@ -90,6 +107,11 @@ OCT_TOL = 5e-3          # octree p=5 vs Kahan (tests/test_octree.py:35)
 APPEL_TOL = 0.09        # Appel vs Kahan (tests/test_octree.py:53)
 KD2_TOL = 2e-3          # fmm2_kd vs Kahan (test_fmm_kd_variants.py:31)
 F64_P2P_TOL = 1e-12     # double P2P kernel vs its plain float64 version
+# eager stages' sum over the padded force they make: of the kernels' own
+# times, and of the CUDA-event times (which hold the host's launch gaps,
+# overlapped in the whole force)
+STAGE_SUM = (0.8, 1.5)
+STAGE_SUM_EVENTS = (0.8, 3.0)
 
 
 def _require(ok: bool, what: str) -> None:
@@ -426,7 +448,8 @@ def _phase_kd_variants(dev, torch):
 
     # the main path in float64: a Simulator with the device builder
     windows = 3
-    sim = Simulator(cfg.replace(tree_async_build="device"), N)
+    sim = Simulator(cfg.replace(tree_async_build="device"), N,
+                    engine="fmm3_kd")
     try:
         torch.cuda.synchronize()
         p2p_cuda.launches = 0
@@ -451,6 +474,116 @@ def _phase_kd_variants(dev, torch):
     _require(sim.rebuilds["adopt_device"] == windows - 2,
              f"{windows - 2} adopted device rebuilds: {dict(sim.rebuilds)}")
     return row
+
+
+def _phase_bench(torch):
+    """Phase 11: the port's bench in --quick mode at N=1M, full width.
+    Returns the bench's JSON object."""
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.scripts import bench as B
+    torch.cuda.synchronize()
+    p2p_cuda.launches = 0
+    out = B.run(n=N, quick=True)
+    launches = p2p_cuda.launches
+    x = out["extra"]
+    print(json.dumps(out), flush=True)
+    _require((x["p"], x["r"], x["sub_boost"]) == (6, 1.67, 1.5)
+             and (x["tree_steps"], x["resort_every"], x["pipeline"])
+             == (16, 2, 2), "the bench's headline is the tuned config at "
+             "the tuned cadence")
+    _require(x["force_rel_err"] <= FORCE_TOL,
+             f"bench fresh-tree error {x['force_rel_err']:.3e} <= {FORCE_TOL}")
+    ladder = x["stale_window_errs"]
+    _require(sorted(map(int, ladder)) == [0, 4, 8, 12, 16],
+             f"window ladder steps {sorted(ladder)}")
+    _require(all(v <= FORCE_TOL for v in ladder.values()),
+             f"every measured step of the window <= {FORCE_TOL}: {ladder}")
+    _require(x["certified"], f"certified: {x['certified_reason']}")
+    d = x["default_cadence"]
+    _require((d["tree_steps"], d["resort_every"], d["pipeline"])
+             == (8, 1, 1) and d["sec_per_step_median"] > 0,
+             "the default cadence was timed")
+    _require(x["finite"], "bench: finite state")
+    _require(launches == x["force_evals"] == x["p2p_kernel_launches"],
+             f"bench: {launches} P2P kernel launches == {x['force_evals']} "
+             f"force evaluations")
+    print(f"bench N={N}: {out['value']:.0f} particle-steps/s at 16/2/2 "
+          f"({x['sec_per_step_median']:.4f} s/step), "
+          f"{d['particle_steps_per_s']:.0f} at 8/1/1 "
+          f"({d['sec_per_step_median']:.4f} s/step); fresh err "
+          f"{x['force_rel_err']:.3e}, window errs {ladder}; boundary wait s "
+          f"{x['boundary_wait_s']} (tuned) {d['boundary_wait_s']} (default); "
+          f"p2p launches {launches} = force evals {x['force_evals']}")
+    return out, launches
+
+
+def _phase_profile(dev, torch):
+    """Phase 12: stage rows of fmm3_kd and fmm2_kd and a kernel trace."""
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.scripts import profile_force as PF
+    reps, rebuilds, calls = 5, 1, 3
+    torch.cuda.synchronize()
+    p2p_cuda.launches = 0
+    recs = [PF.profile_engine("fmm3_kd", N, 6, 1.67, dev, reps, rebuilds),
+            PF.profile_engine("fmm2_kd", PF.N_KD2, 4, 2.0, dev, reps,
+                              rebuilds)]
+    for rec in recs:
+        PF.print_record(rec)
+        for key, (lo, hi) in (("summary_device", STAGE_SUM),
+                              ("summary", STAGE_SUM_EVENTS)):
+            ratio = rec[key]["sum_over_whole"]
+            _require(lo <= ratio <= hi, f"{rec['engine']} {key}: stage sum "
+                     f"{ratio:.3f} x the padded force within {(lo, hi)}")
+        _require(all(v > 0 for v in rec["stages_ms"].values()),
+                 f"{rec['engine']} stage times are positive")
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = PF.trace_force(N, 6, 1.67, dev, tmp, calls)
+    PF.print_histogram(tr, "call", "kernels_ms_per_call")
+    named = {k: v for k, v in tr["kernels_ms_per_call"].items()
+             if "p2p_kernel" in k}
+    _require(bool(named), f"the trace names the P2P kernel: "
+             f"{list(tr['kernels_ms_per_call'])[:8]}")
+    # dim 3 only launches the kernel: the stage rows' force_full,
+    # force_padded and p2p (a warm-up and `reps` timed calls each, then a
+    # warm-up and one traced call each), and the trace's warm-up and
+    # `calls`
+    evals = 3 * (1 + reps) + 3 * 2 + 1 + calls
+    _require(p2p_cuda.launches == evals, f"profile: {p2p_cuda.launches} P2P "
+             f"kernel launches == {evals} force evaluations")
+    print(f"profile: P2P kernel in the trace {sum(named.values()):.3f} ms a "
+          f"padded force call of {tr['device_ms_per_call']:.2f} ms device "
+          f"time; p2p launches {p2p_cuda.launches} = evals {evals}")
+    return recs, tr, p2p_cuda.launches
+
+
+def _phase_viewer():
+    """Phase 13: CLI snapshots on the card rendered by the port's viewer."""
+    import struct
+    import zlib
+
+    import numpy as np
+    from coulomb_oscillators_tpu_torch import cli
+    from coulomb_oscillators_tpu_torch.scripts import view
+    with tempfile.TemporaryDirectory() as tmp:
+        out, img = os.path.join(tmp, "run"), os.path.join(tmp, "img")
+        _require(cli.main(["-n", str(N_CLI), "-iters", "10", "-steps", "10",
+                           "-engine", "direct", "-o", out]) == 0,
+                 "cli run for the viewer")
+        _require(view.main([out, "-o", img, "--dim", "3", "--dtype", "f4",
+                            "--dt", "0.0005", "--stride", "10", "--scale",
+                            "auto"]) == 0, "view renders the snapshots")
+        frames = sorted(os.listdir(img))
+        _require(frames == ["image0.png", "image1.png"], f"frames {frames}")
+        for f in frames:
+            raw = open(os.path.join(img, f), "rb").read()
+            w, h = struct.unpack(">II", raw[16:24])
+            idat = raw[raw.index(b"IDAT") + 4:raw.rindex(b"IEND") - 4]
+            rgb = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+                h, 1 + 3 * w)[:, 1:].reshape(h, w, 3)
+            red = int((rgb[..., 0] > 0).sum())
+            _require((w, h) == (792, 792) and red > 0,
+                     f"{f}: {w} x {h}, {red} red pixels")
+            print(f"viewer {f}: {w} x {h}, {red} red pixels")
 
 
 def main() -> int:
@@ -561,7 +694,7 @@ def main() -> int:
     ps, vs = ID.init_gaussian(n_small, X_STD, u_std, seed=SEED)
     outs = []
     for device in ("cpu", dev):
-        sim = Simulator(small, n_small)
+        sim = Simulator(small, n_small, engine="fmm3_kd")
         st = sim.init_acc(particle_state_from_numpy(ps, vs, device=device))
         outs.append(sim.run(st, 7).pos.cpu())
         sim.close()
@@ -570,7 +703,7 @@ def main() -> int:
           f"{small_dev:.3e}")
     _require(small_dev <= 1e-5, f"small run cuda vs cpu {small_dev:.3e} <= 1e-5")
 
-    sim = Simulator(cfg, N)
+    sim = Simulator(cfg, N, engine="fmm3_kd")
     state = particle_state_from_numpy(pos_h, vel_h, device=dev)
     torch.cuda.synchronize()
     p2p_cuda.launches = 0
@@ -799,7 +932,22 @@ def main() -> int:
     f64_row = _phase_kd_variants(dev, torch)
     _phase("kd 2D and float64", t0)
 
-    # ---- 11. the native library was used -------------------------------
+    # ---- 11. the port's bench ------------------------------------------
+    t0 = time.perf_counter()
+    _, bench_launches = _phase_bench(torch)
+    _phase("bench", t0)
+
+    # ---- 12. stage profile and kernel trace ----------------------------
+    t0 = time.perf_counter()
+    _, _, profile_launches = _phase_profile(dev, torch)
+    _phase("profile", t0)
+
+    # ---- 13. the viewer ------------------------------------------------
+    t0 = time.perf_counter()
+    _phase_viewer()
+    _phase("viewer", t0)
+
+    # ---- 14. the native library was used -------------------------------
     t0 = time.perf_counter()
     print(f"native: co_native built in {native.build_seconds} s; numpy "
           f"traversals in phases 3-5: {raw_main}")
@@ -816,7 +964,11 @@ def main() -> int:
          "source": "coulomb_oscillators_tpu_torch/csrc/p2p.cu",
          "replaces": "coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py:52",
          "also_replaces": "coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py:110",
-         "launches": p2p_launches, "max_abs_err": row["max_abs_err"],
+         "launches": p2p_launches,
+         "launches_by_path": {"simulator": p2p_launches,
+                              "bench": bench_launches,
+                              "profile": profile_launches},
+         "max_abs_err": row["max_abs_err"],
          "max_abs_ref": row["max_abs_ref"],
          "max_rel_err": row["max_rel_err"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "pairs": row["pairs"],

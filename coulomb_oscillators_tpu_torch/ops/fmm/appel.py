@@ -55,23 +55,36 @@ class AppelEngine:
 
     # ---------- force ----------
     def force(self, pos: torch.Tensor, st: OctState) -> torch.Tensor:
-        """Coulomb acceleration (kappa-scaled), original particle order."""
+        """Coulomb acceleration (kappa-scaled), original particle order:
+        the stage methods below, in order."""
+        pos_s = self._sorted(pos, st)
+        q_lvl, coc_lvl = self._stage_monopoles(pos_s, st)
+        F_leaf = self._stage_push_down(self._stage_c2c(q_lvl, coc_lvl))
+        acc_far = F_leaf[st.key.long()]       # L2P: the leaf field
+        acc_near = self._stage_p2p(pos_s, st)
+        acc_s = (acc_far + acc_near) * oc._kappa(self.config, self.n,
+                                                 pos.dtype)
+        return oc._unsort(acc_s, st.perm)
+
+    # ---- pipeline stages (each callable alone, for profiling) ----
+
+    def _sorted(self, pos: torch.Tensor, st: OctState) -> torch.Tensor:
+        """Positions in cell order.  The reference indexes pad slots in
+        int32 and refuses a slot space of 2^31 or more; the port indexes in
+        int64 and refuses the same configurations."""
+        cellsL = 1 << (self.dim * self.L)
+        if cellsL * self.cell_cap >= 2 ** 31:
+            raise ValueError(f"padded slot space {cellsL}*{self.cell_cap} "
+                             f"overflows int32; lower tree_L or cell_cap")
+        return pos[st.perm.long()]
+
+    def _stage_monopoles(self, pos_s: torch.Tensor, st: OctState):
+        """Per-level monopoles: charge counts and centers of charge."""
         n, dim, L = self.n, self.dim, self.L
-        dtype, dev = pos.dtype, pos.device
-        eps2 = self.config.eps2
-        cap = self.cell_cap
+        dtype, dev = pos_s.dtype, pos_s.device
         cellsL = 1 << (dim * L)
         nsib = 1 << dim
-        # the reference indexes pad slots in int32 and refuses a slot
-        # space of 2^31 or more; the port indexes in int64 and refuses the
-        # same configurations
-        if cellsL * cap >= 2 ** 31:
-            raise ValueError(f"padded slot space {cellsL}*{cap} overflows "
-                             f"int32; lower tree_L or cell_cap")
         key = st.key.long()
-        pos_s = pos[st.perm.long()]
-
-        # ---- per-level monopoles: charge count q and center of charge ----
         q_lvl = [None] * (L + 1)
         s_lvl = [None] * (L + 1)          # charge-weighted position sums
         q_lvl[L] = torch.zeros(cellsL, dtype=dtype, device=dev).index_add_(
@@ -83,30 +96,35 @@ class AppelEngine:
             s_lvl[l] = s_lvl[l + 1].reshape(-1, nsib, dim).sum(dim=1)
         coc_lvl = [s / torch.clamp(q, min=1.0)[:, None]
                    for q, s in zip(q_lvl, s_lvl)]
+        return q_lvl, coc_lvl
 
-        # ---- c2c: per level, the field of the stencil's source monopoles
-        # at each target's center of charge ----
+    def _stage_c2c(self, q_lvl: list, coc_lvl: list) -> list:
+        """c2c: per level, the field of the stencil's source monopoles at
+        each target's center of charge."""
+        dim, L = self.dim, self.L
+        dtype, dev = coc_lvl[L].dtype, coc_lvl[L].device
         F_lvl = [torch.zeros((1 << (dim * l), dim), dtype=dtype, device=dev)
                  for l in range(L + 1)]
         for l in range(2, L + 1):
             from_grid, to_grid = oc._grid_maps(dim, l, dev)
             Fg = self._c2c_level(q_lvl[l][from_grid], coc_lvl[l][from_grid],
-                                 l, eps2)
+                                 l, self.config.eps2)
             F_lvl[l] = F_lvl[l] + Fg[to_grid]
+        return F_lvl
 
-        # ---- push the constant field down ----
-        for l in range(3, L + 1):
-            F_lvl[l] = F_lvl[l] + F_lvl[l - 1].repeat_interleave(nsib, dim=0)
+    def _stage_push_down(self, F_lvl: list) -> torch.Tensor:
+        """Push the constant field down to the leaves: [cells_L, dim]."""
+        nsib = 1 << self.dim
+        F = F_lvl[min(2, self.L)]
+        for l in range(3, self.L + 1):
+            F = F_lvl[l] + F.repeat_interleave(nsib, dim=0)
+        return F
 
-        # ---- L2P: the leaf field at each particle ----
-        acc_far = F_lvl[L][key]
-
-        # ---- P2P over neighbour shifts ----
-        pad_slot = key * cap + st.rank.long()
-        acc_near = self._near(pos_s, pad_slot, cap, eps2)
-
-        acc_s = (acc_far + acc_near) * oc._kappa(self.config, n, dtype)
-        return oc._unsort(acc_s, st.perm)
+    def _stage_p2p(self, pos_s: torch.Tensor, st: OctState) -> torch.Tensor:
+        """P2P over the neighbour shifts, unscaled."""
+        cap = self.cell_cap
+        pad_slot = st.key.long() * cap + st.rank.long()
+        return self._near(pos_s, pad_slot, cap, self.config.eps2)
 
     # the reference's traceable entry point; the port runs eagerly
     force_in_jit = force

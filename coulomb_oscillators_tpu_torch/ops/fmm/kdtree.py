@@ -49,13 +49,9 @@ from coulomb_oscillators_tpu_torch.ops.multipole.tables import build_tables
 
 FAR = p2p_cuda.FAR
 
-# Reference defaults, fixed here (the reference's env overrides and
-# constructor knobs are not ported): ~32-particle sub-leaves, grouped M2L
-# with g = 8, M2L list capacity quantum 65536 (the reference's m2l_chunk),
-# and the M2L entries processed per chunk of the eager loop (bounds the
-# [chunk, terms] temporaries).
-LEAF_TARGET = 32
-M2L_GROUP = 8
+# Reference defaults, fixed here: M2L list capacity quantum 65536 (the
+# reference's m2l_chunk), and the M2L entries processed per chunk of the
+# eager loop (bounds the [chunk, terms] temporaries).
 M2L_CAP_QUANTUM = 65536
 M2L_LOOP_CHUNK = 1 << 19
 # pairs per chunk of the near-field potential (bounds its [k, C, CB]
@@ -406,10 +402,16 @@ class KdFmmEngine:
     not; "kd_native", "morton" and "kd_device" force a builder
     ("kd_native" falls back to Morton without the library, as the
     reference does).
+
+    `L` forces the tree level; `leaf_target` is the particle count a
+    sub-leaf aims at when the level is derived.  The reference's tuning
+    knobs are read at the reference's moments: ``CO_SUB_BOOST`` and
+    ``CO_M2L_GROUP`` here, ``CO_STALE_MARGIN`` at each traversal.
     """
 
-    def __init__(self, config: SimConfig, n: int, sub_depth: int = 2,
-                 sort_mode: str = "auto"):
+    def __init__(self, config: SimConfig, n: int, L: Optional[int] = None,
+                 leaf_target: int = 32, sort_mode: str = "auto",
+                 sub_depth: int = 2):
         self.config = config
         self.n = n
         self.dim = config.dim
@@ -420,29 +422,34 @@ class KdFmmEngine:
                              f"{self.sort_mode!r}")
         # p=1 is monopole-only (PM=0), matching the reference's fmm_order=1
         self.p = max(config.fmm_order, 1)
-        self.L = auto_level(n, self.p, config.dens_inhom, config.tree_L,
-                            LEAF_TARGET)
+        self.L = L or auto_level(n, self.p, config.dens_inhom,
+                                 config.tree_L, leaf_target)
         # dual granularity only on the auto-level geometry (the twin
         # explains why a forced coarser tree falls back to leaf MAC)
-        auto_L = auto_level(n, self.p, config.dens_inhom, 0, LEAF_TARGET)
+        auto_L = auto_level(n, self.p, config.dens_inhom, 0, leaf_target)
         self.sub_depth = max(0, min(sub_depth, self.L)) \
             if self.L >= auto_L else 0
         # MAC multiplicity floor at block occupancy (see the twin)
         self.mac_mult_floor = (-(-n // (1 << (self.L - self.sub_depth)))
                                if self.sub_depth else 1)
-        # sub-block acceptance-radius boost: explicit config > accuracy-
-        # grade auto (2.0 below a 1e-4 bound) > throughput default 1.5
+        # sub-block acceptance-radius boost: explicit config > the
+        # CO_SUB_BOOST environment variable > accuracy-grade auto (2.0
+        # below a 1e-4 bound) > throughput default 1.5
         if not self.sub_depth:
             self.mac_sub_boost = 1.0
         elif config.mac_sub_boost > 0.0:
             self.mac_sub_boost = float(config.mac_sub_boost)
+        elif os.environ.get("CO_SUB_BOOST"):
+            self.mac_sub_boost = float(os.environ["CO_SUB_BOOST"])
         elif 0.0 < config.accuracy < 1e-4:
             self.mac_sub_boost = 2.0
         else:
             self.mac_sub_boost = 1.5
         # COC centers: the dipole is identically zero -> no order-1 slots
         self.tables = build_tables(self.dim, self.p, no_dipole=True)
-        self.m2l_group = M2L_GROUP
+        # grouped M2L: per-target entry runs padded to multiples of g
+        # (1 disables grouping)
+        self.m2l_group = int(os.environ.get("CO_M2L_GROUP", "8"))
         self.st = _static_structure(n, self.L,
                                     pad_to=max(128 >> self.sub_depth, 8))
         self.caps = {"p2p": 8192, "m2l": M2L_CAP_QUANTUM}
@@ -556,13 +563,15 @@ class KdFmmEngine:
     def _traverse(self, c_h, lb_h, rb_h):
         """Dual-granularity traversal with the temporal MAC slack (node
         bounds inflated by `stale_margin_abs`, a scalar or a per-axis
-        vector, so frozen lists stay admissible for the reuse window): the
+        vector, or by the ``CO_STALE_MARGIN`` environment variable when
+        set, so frozen lists stay admissible for the reuse window): the
         native single pass, or without the native library the numpy
         ``_traverse_raw`` and :meth:`_fine_lists`, as in the reference.
         Returns (m2l_directed, near), target-sorted."""
         global raw_traversals
         L, S = self.L, self.sub_depth
-        sm = self.stale_margin_abs
+        sm_env = os.environ.get("CO_STALE_MARGIN")
+        sm = float(sm_env) if sm_env is not None else self.stale_margin_abs
         if np.any(np.asarray(sm) > 0.0):
             lb_h = (lb_h - sm).astype(lb_h.dtype)
             rb_h = (rb_h + sm).astype(rb_h.dtype)
@@ -665,8 +674,10 @@ class KdFmmEngine:
         m2l_s[posn] = m2l[:, 1]
         m2l_v[posn] = True
         # group target = min over the group (pad slots carry the Mheap
-        # sentinel; all-pad tail groups stay at the sentinel)
-        m2l_gt = m2l_t.reshape(-1, g).min(axis=1)
+        # sentinel; all-pad tail groups stay at the sentinel); ungrouped
+        # lists (g = 1) carry the reference's one-element placeholder
+        m2l_gt = (m2l_t.reshape(-1, g).min(axis=1) if g > 1
+                  else np.zeros(1, dtype=np.int32))
         p2p_t, p2p_s, p2p_v = _pad_pairs(p2p, self.caps["p2p"], G)
         row_ptr = np.searchsorted(p2p[:, 0], np.arange(G + 1),
                                   side="left").astype(np.int32)
@@ -812,11 +823,12 @@ class KdFmmEngine:
     def force_padded(self, ppad: torch.Tensor, fs: FmmState) -> torch.Tensor:
         """Coulomb acceleration on padded blocks [G, C, dim], kappa-scaled
         (twin of ``force_padded_in_jit``).  Pad slots (pos = FAR) receive
-        ~0; mask before integrating."""
-        V, leaf_local, leafl = self._leaf_expansions(ppad, fs)
-        Lf = mop.expand_L(self.tables, leaf_local)          # [G, S_Lf]
-        far = mop.l2p_field_cols(self.tables, Lf, V, leafl)
-        far = far * self.dev(ppad.device).mask3[..., None]
+        ~0; mask before integrating.  The leaf-frame monomials are
+        evaluated once and shared by the P2M and the L2P; the stage methods
+        below run the same operations one stage at a time."""
+        V, leafl = self._leaf_frame(ppad, fs)
+        local_heap = self._stage_m2l(self._multipoles_from(V, fs), fs)
+        far = self._l2p(V, leafl, self.l2l_down(local_heap, fs))
         near = self._stage_p2p(ppad, fs)
         return (far + near) * self._kappa(ppad.dtype)
 
@@ -825,24 +837,51 @@ class KdFmmEngine:
         dtype.type(kappa))."""
         return torch.tensor(self.config.kappa(self.n), dtype=dtype).item()
 
-    def _leaf_expansions(self, ppad: torch.Tensor, fs: FmmState):
-        """The far-field pipeline up to the leaf locals: leaf-frame
-        monomials V [G, C, S_Lf] (0 at pads), P2M, M2M up, M2L, L2L down.
-        Returns (V, leaf locals [G, S_Lt], leaf length scales [G])."""
-        t = self.tables
+    # ---- pipeline stages (each callable alone, for profiling) ----
+
+    def _leaf_frame(self, ppad: torch.Tensor, fs: FmmState):
+        """Leaf-frame monomials V [G, C, S_Lf] of the normalized offsets (0
+        at pads) and the leaf length scales [G].  Layouts nest, so the P2M
+        reads its slots from the L2P monomials."""
         G = self.G_sub
         leaf0 = _heap_off(self.L)
-        mask3 = self.dev(ppad.device).mask3
-
-        # leaf frames: normalized offsets, 0 at pads; layouts nest, so the
-        # P2M reads its slots from the L2P monomials
         leafc = fs.center[leaf0:leaf0 + G]
         leafl = fs.lam[leaf0:leaf0 + G]
         e = (ppad - leafc[:, None, :]) / leafl[:, None, None]
-        e = torch.where(mask3[..., None], e, 0.0)
-        V = mop.eval_monomial_cols(e, t.PL, self.dim)       # [G, C, S_Lf]
-        mpole_heap = self.m2m_up(mop.p2m_from_cols(t, V, mask3), fs)
-        local_heap = self._stage_m2l(mpole_heap, fs)
+        e = torch.where(self.dev(ppad.device).mask3[..., None], e, 0.0)
+        return mop.eval_monomial_cols(e, self.tables.PL, self.dim), leafl
+
+    def _multipoles_from(self, V: torch.Tensor, fs: FmmState) -> torch.Tensor:
+        """P2M from the leaf monomials, then M2M up: [Mheap, S_M]."""
+        mask3 = self.dev(V.device).mask3
+        return self.m2m_up(mop.p2m_from_cols(self.tables, V, mask3), fs)
+
+    def _l2p(self, V: torch.Tensor, leafl: torch.Tensor,
+             leaf_local: torch.Tensor) -> torch.Tensor:
+        """L2P: far-field acceleration [G, C, dim] (unscaled, 0 at pads)
+        from the leaf locals [G, S_Lt]."""
+        Lf = mop.expand_L(self.tables, leaf_local)          # [G, S_Lf]
+        far = mop.l2p_field_cols(self.tables, Lf, V, leafl)
+        return far * self.dev(V.device).mask3[..., None]
+
+    def _stage_multipoles(self, ppad: torch.Tensor,
+                          fs: FmmState) -> torch.Tensor:
+        """P2M at the leaves + M2M up; mpole_heap [Mheap, S_M]."""
+        return self._multipoles_from(self._leaf_frame(ppad, fs)[0], fs)
+
+    def _stage_local(self, ppad: torch.Tensor, local_heap: torch.Tensor,
+                     fs: FmmState) -> torch.Tensor:
+        """L2L down + L2P; far-field acceleration on padded blocks
+        (unscaled)."""
+        V, leafl = self._leaf_frame(ppad, fs)
+        return self._l2p(V, leafl, self.l2l_down(local_heap, fs))
+
+    def _leaf_expansions(self, ppad: torch.Tensor, fs: FmmState):
+        """The far-field pipeline up to the leaf locals: P2M, M2M up, M2L,
+        L2L down.  Returns (V, leaf locals [G, S_Lt], leaf length scales
+        [G])."""
+        V, leafl = self._leaf_frame(ppad, fs)
+        local_heap = self._stage_m2l(self._multipoles_from(V, fs), fs)
         return V, self.l2l_down(local_heap, fs), leafl
 
     def potential(self, pos: torch.Tensor, fs: FmmState) -> torch.Tensor:
@@ -926,14 +965,14 @@ class KdFmmEngine:
         """Grouped fly-mode M2L over the directed entry list (t <- s):
         per chunk, gather source multipoles and the entries' geometry from
         center/lam, apply m2l_fold_geo -> m2l_sparse_pre, dense-reduce each
-        group of g same-target entries, and add the groups into an
-        [Mheap+1, S_Lt] accumulator with a sorted index_add_ (the twin's
-        segment_sum).  Returns local_heap [Mheap, S_Lt]."""
+        group of g same-target entries (g = 1: none), and add the groups
+        into an [Mheap+1, S_Lt] accumulator with a sorted index_add_ (the
+        twin's segment_sum).  Returns local_heap [Mheap, S_Lt]."""
         t = self.tables
         Mheap = _heap_off(self.L + 1)
         g = self.m2l_group
         K = fs.m2l_tgt.shape[0]
-        if fs.m2l_gtgt.shape[0] * g != K:
+        if g > 1 and fs.m2l_gtgt.shape[0] * g != K:
             raise ValueError("M2L lists are not in the grouped layout")
         # the dense forms (p > SPARSE_P_MAX) hold a [chunk, S_Lt, S_M]
         # operator per entry: bound it to ~2^26 elements
@@ -952,7 +991,9 @@ class KdFmmEngine:
             H2, w, logc = mop.m2l_fold_geo(t, R, lam[a_cl], lam[bi])
             La = mop.m2l_sparse_pre(t, mpole_heap[bi], H2, w, logc)
             La = (La * vv[:, None]).reshape(-1, g, t.S_Lt).sum(dim=1)
-            gta = fs.m2l_gtgt[c0 // g:(c0 + chunk) // g].long()
+            # g = 1: every entry is its own group (pads carry Mheap)
+            gta = (fs.m2l_gtgt[c0 // g:(c0 + chunk) // g] if g > 1
+                   else fs.m2l_tgt[c0:c0 + chunk]).long()
             acc.index_add_(0, gta, La)
         return acc[:Mheap]
 

@@ -376,36 +376,52 @@ class OctreeFmmEngine:
 
     # ---------- force ----------
     def force(self, pos: torch.Tensor, st: OctState) -> torch.Tensor:
-        """Coulomb acceleration (kappa-scaled), original particle order."""
-        t = self.tables
-        n, dim, L = self.n, self.dim, self.L
-        dtype, dev = pos.dtype, pos.device
-        cap = self.cell_cap
-        cellsL = 1 << (dim * L)
-        mats = self._mats(dtype, dev)
-        SM = mats["SM"]
-        nsib = 1 << dim
-        key = st.key.long()
+        """Coulomb acceleration (kappa-scaled), original particle order:
+        the stage methods below, in order."""
+        mats = self._mats(pos.dtype, pos.device)
+        pos_s, e, lam_L = self._frame(pos, st)
+        M_lvl = self._stage_m2m(self._stage_p2m(e, st, mats), mats)
+        L_leaf = self._stage_l2l(self._stage_m2l(M_lvl, st, mats), mats)
+        acc_far = self._stage_l2p(L_leaf, e, st, lam_L)
+        acc_near = self._stage_p2p(pos_s, st)
+        acc_s = (acc_far + acc_near) * _kappa(self.config, self.n, pos.dtype)
+        return _unsort(acc_s, st.perm)
 
+    # ---- pipeline stages (each callable alone, for profiling) ----
+
+    def _frame(self, pos: torch.Tensor, st: OctState):
+        """Sorted positions [n, dim], their offsets from the leaf-cell
+        centers normalized by the leaf length scale, and that scale."""
+        dim = self.dim
         pos_s = pos[st.perm.long()]
-        coordsL = self._coords(dev, dtype)
+        coordsL = self._coords(pos.device, pos.dtype)
         center_of = st.origin[None, :] + (coordsL + 0.5) * st.cw
         lam_L = 0.5 * math.sqrt(dim) * st.cw
+        return pos_s, (pos_s - center_of[st.key.long()]) / lam_L, lam_L
 
-        # ---- P2M at leaves ----
-        e = (pos_s - center_of[key]) / lam_L
-        contrib = mop.p2m_contrib(t, e)
+    def _stage_p2m(self, e: torch.Tensor, st: OctState, mats) -> torch.Tensor:
+        """P2M at the leaves: [cells_L, SM]."""
+        contrib = mop.p2m_contrib(self.tables, e)
         if mats["proj"] is not None:
             contrib = contrib @ mats["proj"]
-        M_lvl = [None] * (L + 1)
-        M_lvl[L] = torch.zeros(cellsL, SM, dtype=dtype, device=dev).index_add_(
-            0, key, contrib)
+        return torch.zeros(1 << (self.dim * self.L), mats["SM"],
+                           dtype=e.dtype, device=e.device).index_add_(
+            0, st.key.long(), contrib)
 
-        # ---- M2M up: the nsib children of a parent are consecutive ----
+    def _stage_m2m(self, M_leaf: torch.Tensor, mats) -> list:
+        """M2M up; the nsib children of a parent are consecutive.  Returns
+        the multipoles per level."""
+        L, nsib, SM = self.L, 1 << self.dim, mats["SM"]
+        M_lvl = [None] * (L + 1)
+        M_lvl[L] = M_leaf
         for l in range(L - 1, -1, -1):
             M_lvl[l] = M_lvl[l + 1].reshape(-1, nsib * SM) @ mats["m2m"]
+        return M_lvl
 
-        # ---- M2L per level ----
+    def _stage_m2l(self, M_lvl: list, st: OctState, mats) -> list:
+        """M2L per level: the locals per level before the downward pass."""
+        t, dim, L = self.tables, self.dim, self.L
+        dtype, dev = M_lvl[L].dtype, M_lvl[L].device
         L_lvl = [torch.zeros((1 << (dim * l), t.S_Lt), dtype=dtype,
                              device=dev) for l in range(L + 1)]
         for l in range(2, L + 1):
@@ -413,22 +429,27 @@ class OctreeFmmEngine:
             Lg = self._m2l_level(M_lvl[l][from_grid], l, mats)
             scale = (1.0 / (st.cw * (1 << (L - l)))) if dim == 3 else 1.0
             L_lvl[l] = L_lvl[l] + scale * Lg[to_grid]
+        return L_lvl
 
-        # ---- L2L down ----
-        for l in range(1, L + 1):
-            shifted = (L_lvl[l - 1] @ mats["l2l"]).reshape(-1, t.S_Lt)
-            L_lvl[l] = L_lvl[l] + shifted
+    def _stage_l2l(self, L_lvl: list, mats) -> torch.Tensor:
+        """L2L down: the leaf locals [cells_L, S_Lt]."""
+        S_Lt = self.tables.S_Lt
+        loc = L_lvl[0]
+        for l in range(1, self.L + 1):
+            loc = L_lvl[l] + (loc @ mats["l2l"]).reshape(-1, S_Lt)
+        return loc
 
-        # ---- L2P ----
-        acc_far = mop.l2p_field(t, L_lvl[L][key], e,
-                                lam_L.expand(n).to(dtype))
+    def _stage_l2p(self, L_leaf: torch.Tensor, e: torch.Tensor,
+                   st: OctState, lam_L: torch.Tensor) -> torch.Tensor:
+        """L2P: far-field acceleration of the sorted particles, unscaled."""
+        return mop.l2p_field(self.tables, L_leaf[st.key.long()], e,
+                             lam_L.expand(self.n).to(e.dtype))
 
-        # ---- P2P over neighbour shifts (int64 pad slots) ----
-        pad_slot = key * cap + st.rank.long()
-        acc_near = self._near(pos_s, pad_slot, cap, self.config.eps2)
-
-        acc_s = (acc_far + acc_near) * _kappa(self.config, n, dtype)
-        return _unsort(acc_s, st.perm)
+    def _stage_p2p(self, pos_s: torch.Tensor, st: OctState) -> torch.Tensor:
+        """P2P over the neighbour shifts (int64 pad slots), unscaled."""
+        cap = self.cell_cap
+        pad_slot = st.key.long() * cap + st.rank.long()
+        return self._near(pos_s, pad_slot, cap, self.config.eps2)
 
     # the reference's traceable entry point; the port runs eagerly
     force_in_jit = force

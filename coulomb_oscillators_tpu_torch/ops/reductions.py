@@ -1,4 +1,4 @@
-"""Error metrics.
+"""Error metrics and reductions.
 
 Twin of ``coulomb_oscillators_tpu/ops/reductions.py`` (reference:
 Simulation/reductions.cuh): the metric semantics, as torch reductions.
@@ -32,3 +32,21 @@ def mean_rel_err(test: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """Mean of per-particle relative errors (relerrReduce2,
     reductions.cuh:82-104)."""
     return torch.mean(rel_diff1(test, ref))
+
+
+def rel_err_l2(test: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """L2-norm-ratio error ||test-ref|| / ||ref|| (relerrReduce3,
+    reductions.cuh:106-153)."""
+    return torch.linalg.vector_norm(test - ref) / torch.linalg.vector_norm(ref)
+
+
+def minmax(pos: torch.Tensor):
+    """Componentwise (min, max) over particles (minmaxReduce2,
+    reductions.cuh:52-80)."""
+    return torch.amin(pos, dim=0), torch.amax(pos, dim=0)
+
+
+def pow_reduce(x: torch.Tensor, expo: float) -> torch.Tensor:
+    """Sum of |x|^expo over all elements (powReduce,
+    reductions.cuh:497-653)."""
+    return torch.sum(torch.abs(x) ** expo)

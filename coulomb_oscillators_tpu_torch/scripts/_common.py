@@ -1,0 +1,54 @@
+"""What the measurement scripts share: the device rule, the card's
+identity, the production beam and the seeded oracle targets."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+X_STD = (0.003, 0.001, 0.01)     # the production Gaussian beam (README)
+N_TARGETS = 2048                 # Kahan-oracle targets, default_rng(0)
+
+
+def pick_device(name=None) -> torch.device:
+    """``cuda:0`` unless the caller names another device.  A measurement
+    script measures the card: without one, and without an explicit
+    ``--device cpu``, this raises instead of timing the host."""
+    if name not in (None, "cuda"):
+        return torch.device(name)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: this script measures the card; pass "
+            "--device cpu to run it on the host (tests, rehearsals)")
+    return torch.device("cuda", 0)
+
+
+def device_info(device) -> dict:
+    """Where the numbers were taken: for a card its nvidia-smi name and
+    power limit with the torch and CUDA versions, else the word cpu."""
+    info = {"torch": torch.__version__}
+    if torch.device(device).type != "cuda":
+        return dict(info, device="cpu")
+    from coulomb_oscillators_tpu_torch.scripts.ladder import card
+    return dict(info, **card(), cuda=torch.version.cuda)
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def beam(n: int, config=None):
+    """The production Gaussian beam at `n` in float32: (pos, vel) on the
+    host, x_std = X_STD, u = omega0 * x_std, seed 0."""
+    from coulomb_oscillators_tpu_torch import SimConfig
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+    config = config or SimConfig()
+    u = tuple(w * x for w, x in zip(config.omega0, X_STD))
+    return ID.init_gaussian(n, X_STD, u, dtype=np.float32)
+
+
+def oracle_targets(n: int) -> np.ndarray:
+    """Indices of the seeded oracle targets (2048, or all below that)."""
+    return np.random.default_rng(0).choice(n, min(N_TARGETS, n),
+                                           replace=False)

@@ -55,14 +55,10 @@ def _state(config, n, device, uniform=False):
     return particle_state_from_numpy(pos, vel, device=device)
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run(tag, config, n, engine, device, steps=12, uniform=False,
         repeats=2) -> dict:
     """One ladder row: s/step of `engine` at `n` on `device`."""
+    from coulomb_oscillators_tpu_torch.scripts._common import sync as _sync
     from coulomb_oscillators_tpu_torch.simulate import Simulator
 
     t_setup = time.perf_counter()

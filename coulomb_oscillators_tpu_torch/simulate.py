@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import os
 import time
 
 import numpy as np
@@ -35,15 +36,14 @@ from coulomb_oscillators_tpu_torch.models import integrators as I
 from coulomb_oscillators_tpu_torch.ops.elastic import add_elastic
 from coulomb_oscillators_tpu_torch.state import ParticleState
 
-STALE_MARGIN_FACTOR = 2.0
-
-
 def auto_stale_margin(vel, config: SimConfig) -> np.ndarray:
     """Per-axis traversal-time MAC slack for frozen pair lists:
-    rms|v_axis| * dt * max_list_age * 2 (the twin explains the factor and
-    the list ages).  `vel` is a tensor or a host array; the mean runs in
-    float64.  Returns a [dim] float64 vector (zeros when lists never go
-    stale)."""
+    rms|v_axis| * dt * max_list_age * factor (the twin explains the
+    factor and the list ages).  The factor is 2 unless the
+    ``CO_STALE_MARGIN_FACTOR`` environment variable gives another, read
+    at each call as in the twin.  `vel` is a tensor or a host array; the
+    mean runs in float64.  Returns a [dim] float64 vector (zeros when
+    lists never go stale)."""
     ts = max(config.tree_steps, 1)
     if ts <= 1:
         return np.zeros(config.dim)
@@ -56,7 +56,8 @@ def auto_stale_margin(vel, config: SimConfig) -> np.ndarray:
     if isinstance(vel, torch.Tensor):
         vel = vel.detach().cpu().numpy()
     vrms_ax = np.sqrt(np.mean(np.asarray(vel, np.float64) ** 2, axis=0))
-    return vrms_ax * config.dt * age * STALE_MARGIN_FACTOR
+    fac = float(os.environ.get("CO_STALE_MARGIN_FACTOR", "2.0"))
+    return vrms_ax * config.dt * age * fac
 
 
 class _HostCopy:
@@ -82,11 +83,12 @@ class _HostCopy:
 class Simulator:
     """Runs the Coulomb-oscillator system with any force engine."""
 
-    def __init__(self, config: SimConfig, n: int, engine: str = "fmm3_kd",
+    def __init__(self, config: SimConfig, n: int, engine: str = "direct",
                  mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh mode is not ported yet: ROADMAP.md queue 1, item 10")
+                "mesh mode is not ported yet: ROADMAP.md, multi-GPU (the "
+                "last item of \"What remains\")")
         self.config = config
         self.n = n
         self.engine_name = engine
@@ -111,7 +113,10 @@ class Simulator:
         self._boundary_i = 0
         self._last_full = None
         self._pool = None
+        # seconds the last adoption waited on its background job, and the
+        # sum over every adoption so far
         self.last_rebuild_wait = 0.0
+        self.rebuild_wait_total = 0.0
         # rebuilds by kind, for diagnostics: adopted full re-sorts (with
         # repad), adopted refreshes, synchronous refreshes, synchronous
         # full builds
@@ -247,15 +252,21 @@ class Simulator:
         ts = max(self.config.tree_steps, 1)
         done = 0
         while done < steps:
-            if self._steps_since_build >= ts:
-                self._rebuild_padded()
-                self._steps_since_build = 0
+            self.start_window()
             k = min(ts - self._steps_since_build, steps - done)
             self._padded = self._scan_step(self._padded, self._fstate, k)
             self._steps_since_build += k
             done += k
         self._last_out = None     # handed-out states are now stale
         return self._padded.pos
+
+    def start_window(self) -> None:
+        """Run the window-boundary rebuild now if the reuse window is used
+        up (:meth:`advance_padded` does so before its next step); a probe
+        calls it to read the state a new window starts from."""
+        if self._steps_since_build >= max(self.config.tree_steps, 1):
+            self._rebuild_padded()
+            self._steps_since_build = 0
 
     def current_state(self) -> ParticleState:
         """Unpad and return the current state (resumable via run())."""
@@ -294,7 +305,7 @@ class Simulator:
             if self._pending is not None:
                 t0 = time.perf_counter()
                 self._fstate = self._pending.result()
-                self.last_rebuild_wait = time.perf_counter() - t0
+                self._waited(time.perf_counter() - t0)
                 self._padded = self._pad_state(cur)
                 self.rebuilds["adopt_device"] += 1
             else:
@@ -314,7 +325,7 @@ class Simulator:
             _, kind, fut = self._pqueue.popleft()
             t0 = time.perf_counter()
             res = fut.result()
-            self.last_rebuild_wait = time.perf_counter() - t0
+            self._waited(time.perf_counter() - t0)
             if kind == "full":
                 fs_new, remap = res
                 self._padded = ParticleState(*eng.repad_triple(
@@ -360,6 +371,10 @@ class Simulator:
 
             self._pqueue.append((i + 1, "refresh",
                                  self._executor().submit(rjob)))
+
+    def _waited(self, seconds: float) -> None:
+        self.last_rebuild_wait = seconds
+        self.rebuild_wait_total += seconds
 
     def _executor(self):
         if self._pool is None:

@@ -150,7 +150,7 @@ def test_simulator_cuda_matches_cpu(cuda):
     pos, vel = ID.init_gaussian(n, X_STD, X_STD)
     outs = []
     for device in ("cpu", cuda):
-        sim = Simulator(cfg, n)
+        sim = Simulator(cfg, n, engine="fmm3_kd")
         try:
             st = sim.init_acc(particle_state_from_numpy(pos, vel,
                                                         device=device))

@@ -191,8 +191,16 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith('jax.') or k.startswith('coulomb_oscillators_tpu.'))\n"
+        "k.startswith('jax.') or k == 'coulomb_oscillators_tpu' or "
+        "k.startswith('coulomb_oscillators_tpu.'))\n"
         "assert not bad, bad\n"
+        "new = ['utils.font', 'utils.profiling', 'scripts._common', "
+        "'scripts.view', 'scripts.profile_force', "
+        "'scripts.stale_margin_probe', 'scripts.cadence_probe', "
+        "'scripts.bench']\n"
+        "missing = [m for m in new if P.__name__ + '.' + m not in "
+        "sys.modules]\n"
+        "assert not missing, missing\n"
         "print('ok', len([k for k in sys.modules if "
         "k.startswith('coulomb_oscillators_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

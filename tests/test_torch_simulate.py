@@ -49,7 +49,7 @@ def test_trajectory_matches_reference(beam, kw):
     st = js.init_acc(JState(jnp.asarray(pos), jnp.asarray(vel),
                             jnp.zeros((N, 3), jnp.float32)))
     ref = np.asarray(js.run(st, steps).pos)
-    ts = TSim(TConfig(**cfg), N)
+    ts = TSim(TConfig(**cfg), N, engine="fmm3_kd")
     try:
         st = ts.init_acc(particle_state_from_numpy(pos, vel, device="cpu"))
         out = ts.run(st, steps)
@@ -72,7 +72,7 @@ def test_resume_and_advance_padded(beam):
     an active run; a foreign state restarts the pipeline."""
     pos, vel = beam
     cfg = TConfig(fmm_order=3, tree_radius=2.0, tree_steps=2)
-    sim = TSim(cfg, N)
+    sim = TSim(cfg, N, engine="fmm3_kd")
     try:
         with pytest.raises(RuntimeError):
             sim.advance_padded(1)
@@ -104,10 +104,11 @@ def test_auto_stale_margin_matches(beam, kw):
 def test_stale_margin_config(beam):
     pos, vel = beam
     st = particle_state_from_numpy(pos, vel, device="cpu")
-    sim = TSim(TConfig(stale_margin=0.0), N)
+    sim = TSim(TConfig(stale_margin=0.0), N, engine="fmm3_kd")
     sim._set_stale_margin(st)
     assert sim._fmm.stale_margin_abs == 0.0
-    sim = TSim(TConfig(tree_steps=8, tree_pipeline=2), N)
+    sim = TSim(TConfig(tree_steps=8, tree_pipeline=2), N,
+               engine="fmm3_kd")
     sim._set_stale_margin(st)
     vrms = np.sqrt(np.mean(vel.astype(np.float64) ** 2, axis=0))
     np.testing.assert_allclose(sim._fmm.stale_margin_abs,
