@@ -74,7 +74,27 @@ p=6, r=1.67), and the CLI's direct engine at its default N=30001.
      view renders them, the PNGs decode to 792 x 792 with a non-empty red
      channel;
  14. the native library: every N=1M kd build of phases 3-5 went through
-     co_native, none through the numpy traversal.
+     co_native, none through the numpy traversal;
+ 15. multi-device (parallel/*, Simulator(mesh=), cli -chips) at N=1M, p=6,
+     r=1.67: ranks started by parallel.mesh.spawn, 2 and then 4 of them
+     sharing cuda:0 (gloo, collectives through host memory), then 1 with
+     the default placement (NCCL).  Each run: the particle-sharded
+     force_padded against the single-device force_padded on the same tree
+     (<= 1e-5 of max|a|) and the Kahan oracle on 1,000 targets (<= 1e-3),
+     the hop histogram, the bytes a rank hands to each collective in one
+     force evaluation, the force and its far / halo / near parts timed,
+     then the mesh-mode Simulator: init_acc + 3 windows of tree_steps=8
+     with the async pipeline (one priming refresh, one adopted background
+     rebuild), finite, all ranks equal, and on every rank as many P2P
+     kernel launches as force evaluations.  Then make_sharded_direct, ring
+     and all-gather, on 2 ranks sharing the card at N=30001 against the
+     single-device direct kernel (<= 1e-5), the direct kernel's
+     separate-targets entry against the plain block-on-block form (<=
+     1e-5, CUDA-event times of both), and the CLI with -chips 1 (snapshot
+     names and sizes; -chips 2 is refused with -1), and the dry run of
+     scripts/graft_entry.py on 2 ranks sharing the card (with the default
+     placement it raises: one device).  A rank that raises fails the run.
+     The timings are labelled "N ranks sharing one <card>".
 
 Any failure raises: the script then exits non-zero without its last line.
 Usage, from the repository root:  python3 chip_smoke.py
@@ -586,6 +606,289 @@ def _phase_viewer():
             print(f"viewer {f}: {w} x {h}, {red} red pixels")
 
 
+def _mesh_rank(mesh, windows):
+    """One rank of the multi-device phase at N=1M (p=6, r=1.67, the
+    README's Gaussian beam, seed 0): the particle-sharded force against the
+    single-device padded force on the same tree (no geometry refresh in
+    either) and against the Kahan oracle, the hop histogram, the bytes each
+    collective is handed in one force evaluation, the force's parts timed,
+    then the mesh-mode Simulator over `windows` windows of 8 steps.
+    Returns rank 0's record; a failed check raises on the rank that sees
+    it."""
+    import torch
+    from coulomb_oscillators_tpu_torch import SimConfig
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR, KdFmmEngine
+    from coulomb_oscillators_tpu_torch.parallel.fmm_pshard import (
+        PShardedKdFmm, shard_pair_lists)
+    from coulomb_oscillators_tpu_torch.simulate import Simulator
+    from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
+
+    dev, P = mesh.device, mesh.ndev
+    _require(dev == torch.device("cuda", 0), f"rank on cuda:0, got {dev}")
+    cfg = SimConfig(fmm_order=6, tree_radius=1.67)
+    u_std = tuple(w * x for w, x in zip(cfg.omega0, X_STD))
+    pos_h, vel_h = ID.init_gaussian(N, X_STD, u_std, seed=SEED)
+    pos = torch.from_numpy(pos_h).to(dev)
+    _require(pos.device == dev, "tensors on cuda:0")
+    eng = KdFmmEngine(cfg, N)
+    fs = eng.build(pos)
+    ps = PShardedKdFmm(eng, mesh)
+    lists, hops = shard_pair_lists(eng, fs, P)
+    ppad = eng.pad_array(pos, fs, fill=FAR)
+    ppad_l = ps.shard_padded(ppad)
+    _require(tuple(ppad_l.shape) == (eng.G_sub // P, eng.st.C, 3),
+             f"shard shape {tuple(ppad_l.shape)}")
+    loc = ps.localize(lists, hops, dev)
+
+    torch.cuda.synchronize()
+    p2p_cuda.launches = 0
+    mesh.bytes.clear()
+    mesh.calls.clear()
+    acc_l = ps.force_padded(ppad_l, fs, lists, hops)
+    torch.cuda.synchronize()
+    one_eval = p2p_cuda.launches
+    moved, calls = dict(mesh.bytes), dict(mesh.calls)
+    _require(one_eval == 1, f"one P2P launch a force evaluation: {one_eval}")
+    acc = eng.unpad_array(ps.gather_padded(acc_l), fs)
+    rec = dict(P=P, backend=mesh.backend, L=eng.L, C=eng.st.C, hops=hops,
+               halo_hops=loc.hops, dmax=int(loc.col2d.shape[1]),
+               bytes_per_eval=moved, calls_per_eval=calls,
+               hop_hist={str(h): int(lists.p2p_val[i].sum())
+                         for i, h in enumerate(hops)})
+    if mesh.rank == 0:
+        single = eng.unpad_array(eng.force_padded(ppad, fs), fs)
+        rec["vs_single"], _ = _rel_dev(acc, single)
+        rec["vs_kahan"] = _kahan_err(acc, pos, cfg, N, torch)
+        _require(bool(torch.isfinite(acc).all()), "finite sharded force")
+        _require(rec["vs_single"] <= P2P_TOL, f"sharded vs single-device "
+                 f"force {rec['vs_single']:.3e} <= {P2P_TOL}")
+        _require(rec["vs_kahan"] <= FORCE_TOL, f"sharded force vs Kahan "
+                 f"{rec['vs_kahan']:.3e} <= {FORCE_TOL}")
+        del single
+    del acc
+
+    # the force's parts on this rank, host clock around a synchronize (the
+    # ranks run at once on the one card, so each part holds its wait for
+    # the others)
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3, out
+
+    rec["force_ms"], _ = timed(lambda: ps.force_padded(ppad_l, fs, lists,
+                                                       hops))
+    rec["far_ms"], _ = timed(lambda: ps.far_padded(ppad_l, fs, loc))
+    rec["halo_ms"], cat = timed(lambda: ps.halo_blocks(ppad_l, loc))
+    rec["near_ms"], _ = timed(lambda: ps.near_padded(cat, loc))
+    del cat, ppad, ppad_l, acc_l, loc, lists, fs, eng, ps
+
+    # mesh-mode Simulator: init_acc + `windows` windows of tree_steps=8
+    # with the async pipeline (the first boundary primes it, the next
+    # adopts the background rebuild)
+    sim = Simulator(cfg, N, engine="fmm3_kd", mesh=mesh)
+    try:
+        torch.cuda.synchronize()
+        p2p_cuda.launches = 0
+        sim.init_acc(particle_state_from_numpy(pos_h, vel_h, device=dev))
+        ts = sim.config.tree_steps
+        win_s = []
+        for _ in range(windows):
+            torch.cuda.synchronize()
+            mesh.barrier()
+            tw = time.perf_counter()
+            sim.advance_padded(ts)
+            torch.cuda.synchronize()
+            win_s.append(time.perf_counter() - tw)
+        final = sim.current_state()
+        torch.cuda.synchronize()
+        launches = p2p_cuda.launches
+        fstate = sim._fstate
+    finally:
+        sim.close()
+    evals = 1 + windows * ts
+    # every rank holds the same state and adopted the same lists
+    digest = torch.stack(
+        [final.pos.double().sum(), final.vel.double().abs().sum(),
+         final.pos[::997].double().abs().sum()]
+        + [getattr(fstate, f).double().sum() for f in (
+            "perm", "p2p_src", "m2l_tgt", "m2l_src", "p2p_row_ptr",
+            "p2p_col2d", "m2l_gtgt")])
+    rows = mesh.all_gather(digest[None].contiguous())
+    counts = mesh.all_gather(torch.tensor([launches], device=dev))
+    _require(bool((rows == rows[0]).all()), "all ranks hold the same state "
+             "and adopted the same lists")
+    _require(bool(torch.isfinite(final.pos).all())
+             and final.pos.shape == (N, 3), "finite [N, 3] positions")
+    _require(launches == evals, f"rank {mesh.rank}: {launches} P2P kernel "
+             f"launches == {evals} force evaluations")
+    _require(sim.rebuilds["adopt_full"] == windows - 2
+             and sim.rebuilds["sync_refresh"] == 1,
+             f"{windows - 2} adopted rebuilds: {dict(sim.rebuilds)}")
+    rec.update(sim_launches=counts.tolist(), sim_evals=evals, win_s=win_s,
+               rebuilds=dict(sim.rebuilds), wait_s=sim.rebuild_wait_total)
+    return rec
+
+
+def _mesh_direct_rank(mesh, n):
+    """The sharded direct force, ring and all-gather, on the CLI's 3D beam
+    at `n`: rank 0 holds both against the single-device direct kernel."""
+    import torch
+    from coulomb_oscillators_tpu_torch.ops import direct as D
+    from coulomb_oscillators_tpu_torch.parallel import mesh as PM
+    cfg, ph, _ = _cli_beams(n)[3]
+    dev = mesh.device
+    pos = torch.from_numpy(ph).to(dev)
+    eps2, kap = cfg.eps2, cfg.kappa(n)
+    ppos, _ = PM.pad_to_multiple(pos, mesh.ndev)
+    m = ppos.shape[0] // mesh.ndev
+    local = ppos[mesh.rank * m:(mesh.rank + 1) * m].contiguous()
+    rec = {}
+    for scheme in ("ring", "allgather"):
+        fn = PM.make_sharded_direct(mesh, eps2, kap, dim=3, scheme=scheme)
+        torch.cuda.synchronize()
+        D.launches = 0
+        acc = mesh.all_gather(fn(local))[:n]
+        torch.cuda.synchronize()
+        rec[scheme + "_launches"] = D.launches
+        want = mesh.ndev if scheme == "ring" else 1
+        _require(D.launches == want, f"{scheme}: {D.launches} direct kernel "
+                 f"launches == {want} block-on-block forces")
+        if mesh.rank == 0:
+            rec[scheme], _ = _rel_dev(acc, D.direct(pos, eps2, kap))
+            _require(rec[scheme] <= P2P_TOL, f"sharded direct ({scheme}) vs "
+                     f"single-device {rec[scheme]:.3e} <= {P2P_TOL}")
+    return rec
+
+
+def _phase_multi_device(dev, smi, torch):
+    """Phase 15: the multi-device layer on the one card.  Returns (per-rank
+    P2P launches by run, the direct kernel's launches by scheme, the
+    separate-targets entry's row)."""
+    import numpy as np
+    from coulomb_oscillators_tpu_torch import cli
+    from coulomb_oscillators_tpu_torch.ops import direct as D
+    from coulomb_oscillators_tpu_torch.parallel import mesh as PM
+    from coulomb_oscillators_tpu_torch.utils import roofline
+
+    windows = 3
+    p2p_by_run = {}
+    # 2 and 4 ranks sharing the card (gloo, collectives through host
+    # memory), then 1 rank with the default placement (NCCL on cuda:0)
+    for P, kw in ((2, dict(device="cuda:0", share_device=True)),
+                  (4, dict(device="cuda:0", share_device=True)),
+                  (1, dict())):
+        t0 = time.perf_counter()
+        r = PM.spawn(_mesh_rank, P, windows, timeout=300, **kw)
+        label = (f"{P} ranks sharing one {smi}" if P > 1
+                 else f"1 rank (NCCL) on {smi}")
+        _require(r["backend"] == ("gloo" if P > 1 else "nccl"),
+                 f"backend {r['backend']}")
+        total = max(sum(r["hop_hist"].values()), 1)
+        per_step = sorted(w / 8 for w in r["win_s"][1:])
+        print(f"mesh [{label}]: L={r['L']} C={r['C']} hops={r['hops']} "
+              f"dmax={r['dmax']}; sharded force vs single-device "
+              f"{r['vs_single']:.3e} of max|a| (bound {P2P_TOL}), vs Kahan "
+              f"{r['vs_kahan']:.3e} (bound {FORCE_TOL}); hop histogram "
+              f"{r['hop_hist']} (hop 0: {r['hop_hist']['0'] / total:.4f}); "
+              f"bytes a rank hands to each collective in one force "
+              f"evaluation {r['bytes_per_eval']} (calls "
+              f"{r['calls_per_eval']}); rank 0 force {r['force_ms']:.2f} ms "
+              f"= far {r['far_ms']:.2f} + halo {r['halo_ms']:.2f} + near "
+              f"{r['near_ms']:.2f} ms; simulator window s {r['win_s']} "
+              f"(median s/step of windows 2-{windows} "
+              f"{per_step[len(per_step) // 2]:.4f}); rebuilds "
+              f"{r['rebuilds']}, boundary wait {r['wait_s']:.3f} s; p2p "
+              f"launches per rank {r['sim_launches']} = force evals "
+              f"{r['sim_evals']}; spawn {time.perf_counter() - t0:.1f} s")
+        _require(all(c == r["sim_evals"] for c in r["sim_launches"])
+                 and len(r["sim_launches"]) == P,
+                 f"P2P launches on every rank {r['sim_launches']} == "
+                 f"{r['sim_evals']}")
+        p2p_by_run[f"mesh_{P}" + ("_nccl" if P == 1 else "")] = \
+            r["sim_launches"][0]
+
+    # the sharded direct force, 2 ranks sharing the card
+    r = PM.spawn(_mesh_direct_rank, 2, N_CLI, device="cuda:0",
+                 share_device=True)
+    print(f"mesh direct [2 ranks sharing one {smi}] N={N_CLI}: ring "
+          f"{r['ring']:.3e}, allgather {r['allgather']:.3e} of max|a| "
+          f"against the single-device kernel (bound {P2P_TOL}); direct "
+          f"launches a rank: ring {r['ring_launches']}, allgather "
+          f"{r['allgather_launches']}")
+    direct_by_scheme = {"mesh_ring": r["ring_launches"],
+                        "mesh_allgather": r["allgather_launches"]}
+
+    # the kernel's separate-targets entry against the plain block-on-block
+    # form, at the all-gather scheme's shapes (a rank's rows x all sources)
+    cfg, ph, _ = _cli_beams(N_CLI)[3]
+    src = torch.from_numpy(ph).to(dev)
+    tgt = src[:-(-N_CLI // 2)].contiguous()
+    eps2, kap = cfg.eps2, cfg.kappa(N_CLI)
+    got = D.direct_targets(tgt, src, eps2, kap)
+    plain = D.direct_targets_plain(tgt, src, eps2, kap)
+    rel, mabs = _rel_dev(got, plain)
+    ms = _cuda_ms(lambda: D.direct_targets(tgt, src, eps2, kap), 20, torch)
+    plain_ms = _cuda_ms(lambda: D.direct_targets_plain(tgt, src, eps2, kap),
+                        3, torch)
+    pairs = tgt.shape[0] * src.shape[0]
+    b = roofline.bound(pairs, (2 * tgt.numel() + src.numel()) * 4, dim=3)
+    ts_row = dict(dim=3, n_targets=tgt.shape[0], n=N_CLI, max_rel_err=rel,
+                  max_abs_err=mabs, max_abs_ref=float(plain.abs().max()),
+                  ms=ms, plain_ms=plain_ms, pairs=pairs,
+                  bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                  bound_share=b["bound_ms"] / ms)
+    print(f"direct targets [{tgt.shape[0]} x {N_CLI}] on {smi}: kernel vs "
+          f"plain rel_dev={rel:.3e} max_abs={mabs:.3e}; kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.3f}; bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}; kernel at {100 * ts_row['bound_share']:.1f}%)")
+    _require(rel <= P2P_TOL, f"direct targets entry vs plain {rel:.3e} <= "
+             f"{P2P_TOL}")
+
+    # the CLI with -chips 1 on the card (NCCL, world size 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = time.perf_counter()
+        _require(cli.main(["-n", str(N_CLI), "-iters", "16", "-steps", "8",
+                           "-chips", "1", "-engine", "fmm3_kd", "-o", tmp])
+                 == 0, "cli -chips 1")
+        tc = time.perf_counter() - tc
+        want = [f"out{i}_0.000500.bin" for i in (0, 16, 8)]
+        got = sorted(f for f in os.listdir(tmp) if f.endswith(".bin"))
+        _require(got == sorted(want), f"cli -chips 1 snapshots {got}")
+        for f in got:
+            _require(os.path.getsize(os.path.join(tmp, f))
+                     == 2 * N_CLI * 3 * 4, f"cli -chips 1 {f} bytes")
+        _require(os.path.exists(os.path.join(tmp, "args.txt")),
+                 "cli -chips 1 args.txt")
+        sp = np.fromfile(os.path.join(tmp, "out16_0.000500.bin"), np.float32)
+        _require(bool(np.isfinite(sp).all()), "cli -chips 1 finite")
+    _require(cli.main(["-n", "64", "-chips", "2", "-engine", "fmm3_kd"])
+             == -1, "cli -chips 2 on one card returns -1")
+    print(f"cli -chips 1 N={N_CLI} fmm3_kd: 16 iterations in {tc:.3f} s; "
+          f"{len(got)} snapshots of {2 * N_CLI * 3 * 4} bytes; -chips 2 "
+          f"refused (one device visible)")
+
+    # the dry run: its default placement needs a card a rank
+    from coulomb_oscillators_tpu_torch.scripts import graft_entry
+    try:
+        graft_entry.dryrun_multichip(2)
+    except RuntimeError as e:
+        _require("devices visible" in str(e), f"dry run placement: {e}")
+    else:
+        _require(False, "dryrun_multichip(2) on one card must raise")
+    td = time.perf_counter()
+    graft_entry.dryrun_multichip(2, device="cuda:0", share_device=True)
+    print(f"dryrun_multichip ok: 2 ranks sharing one {smi}, "
+          f"{time.perf_counter() - td:.1f} s")
+    return p2p_by_run, direct_by_scheme, ts_row
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -955,6 +1258,11 @@ def main() -> int:
              "the N=1M kd builds of phases 3-5 went through co_native")
     _phase("native", t0)
 
+    # ---- 15. the multi-device layer ------------------------------------
+    t0 = time.perf_counter()
+    mesh_p2p, mesh_direct, ts_row = _phase_multi_device(dev, smi, torch)
+    _phase("multi-device", t0)
+
     row, drow = p2p_rows[0], direct_rows[3, N_CLI]
     # no single PyTorch call computes a masked leaf-pair sum or an
     # all-pairs softened Coulomb sum, so library_ms is null
@@ -967,7 +1275,7 @@ def main() -> int:
          "launches": p2p_launches,
          "launches_by_path": {"simulator": p2p_launches,
                               "bench": bench_launches,
-                              "profile": profile_launches},
+                              "profile": profile_launches, **mesh_p2p},
          "max_abs_err": row["max_abs_err"],
          "max_abs_ref": row["max_abs_ref"],
          "max_rel_err": row["max_rel_err"], "ms": row["ms"],
@@ -988,7 +1296,9 @@ def main() -> int:
         {"name": "direct", "route": "cuda",
          "source": "coulomb_oscillators_tpu_torch/csrc/direct.cu",
          "replaces": "coulomb_oscillators_tpu/ops/direct.py:161",
-         "launches": direct_launches, "max_abs_err": drow["max_abs_err"],
+         "launches": direct_launches,
+         "launches_by_path": {"cli": direct_launches, **mesh_direct},
+         "targets_entry": ts_row, "max_abs_err": drow["max_abs_err"],
          "max_abs_ref": drow["max_abs_ref"],
          "max_rel_err": drow["max_rel_err"], "ms": drow["ms"],
          "plain_ms": drow["plain_ms"], "pairs": drow["pairs"],

@@ -12,13 +12,23 @@ default engine ``fmm2``) computes in float64 only with ``-cpu``, as the
 twin does on a CPU backend; on the card it computes in float32.  2D
 snapshots are float64 and 3D ones float32 either way.
 
-Not ported (ROADMAP.md): ``-chips`` (queue 1, item 10); the twin's JAX
-compile cache has no counterpart.
+``-chips P`` runs the simulation particle-sharded over P devices
+(``parallel/fmm_pshard.py`` through the Simulator's mesh mode): the program
+starts P ranks (``parallel.mesh.spawn``), rank r on ``cuda:r``, or P CPU
+processes with ``-cpu``; every rank builds the same seeded state and rank 0
+alone writes ``args.txt`` and the snapshots.  More ranks than visible CUDA
+devices is refused with the twin's message and -1.  The test modes ignore
+``-chips``, as in the twin; ``-accuracy`` with ``-chips`` is refused (its
+timed search would choose per rank): tune first, then pass ``-p`` and
+``-r``.
+
+The twin's JAX compile cache has no counterpart.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from typing import Optional
@@ -102,7 +112,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="2D: KV depressed phase advances override")
     p.add_argument("-chips", dest="chips", type=int, default=0,
                    help="run particle-sharded over this many devices "
-                        "(not ported yet)")
+                        "(kd engines; one process per device)")
     # accepted for reference-CLI compatibility
     p.add_argument("-gpu", dest="gpu_blocksize", type=int, default=None,
                    help="(compat; each kernel picks its block size)")
@@ -115,17 +125,45 @@ def main(argv: Optional[list] = None) -> int:
     print("N-body coulomb oscillators (PyTorch + CUDA port)\n"
           "Type 'nbco3-torch -h' for a brief documentation.\n")
     args = build_parser().parse_args(argv)
-    if args.chips:
-        raise NotImplementedError(
-            "-chips (particle-sharded runs) is not ported yet: ROADMAP.md "
-            "queue 1, item 10")
+    cmdline = sys.argv if argv is None else ["nbco3-torch"] + list(argv)
 
     import torch
+    sharded = bool(args.chips) and not (args.test or args.test2)
+    if sharded and not args.cpu and args.chips > torch.cuda.device_count():
+        print(f"-chips {args.chips}: only {torch.cuda.device_count()} "
+              f"devices visible")
+        return -1
     if not args.cpu and not torch.cuda.is_available():
         print("nbco3-torch: no CUDA device is available; pass -cpu to run "
               "on the CPU", file=sys.stderr)
         return 1
-    device = torch.device("cpu") if args.cpu else torch.device("cuda", 0)
+    if sharded:
+        if args.accuracy is not None:
+            print("-accuracy with -chips: tune (p, r) in a single-device "
+                  "run first, then pass -p and -r")
+            return -1
+        from coulomb_oscillators_tpu_torch.parallel import mesh as PM
+        return PM.spawn(_rank_main, args.chips, args, cmdline,
+                        device="cpu" if args.cpu else None)
+    return _run(args, cmdline, None)
+
+
+def _rank_main(mesh, args, cmdline) -> int:
+    """One rank of a ``-chips`` run; only rank 0 prints."""
+    if mesh.rank == 0:
+        return _run(args, cmdline, mesh)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return _run(args, cmdline, mesh)
+
+
+def _run(args, cmdline, mesh) -> int:
+    """The program after its arguments are parsed; `mesh` is this rank's
+    ``parallel.mesh.Mesh`` in a ``-chips`` run, else None."""
+    import torch
+    if mesh is not None:
+        device = mesh.device
+    else:
+        device = torch.device("cpu") if args.cpu else torch.device("cuda", 0)
 
     from coulomb_oscillators_tpu_torch import SimConfig
     from coulomb_oscillators_tpu_torch.models import init_dist as ID
@@ -221,17 +259,20 @@ def main(argv: Optional[list] = None) -> int:
     # --- simulation loop (main3.cu:832-874) --------------------------------
     from coulomb_oscillators_tpu_torch.simulate import Simulator
 
-    os.makedirs(args.out, exist_ok=True)
-    SIO.write_args(args.out, sys.argv if argv is None
-                   else ["nbco3-torch"] + list(argv))
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        os.makedirs(args.out, exist_ok=True)
+        SIO.write_args(args.out, cmdline)
 
-    sim = Simulator(config, n, engine=engine)
+    sim = Simulator(config, n, engine=engine, mesh=mesh)
     try:
         state = sim.init_acc(state)
 
         # reference cadence (main3.cu:841-873): snapshot out<iter> written
         # when iter % steps == 0, after stepping at that iter.
         def snapshot(it):
+            if not writer:
+                return
             print(it, end=" ", flush=True)
             SIO.write_state(SIO.snapshot_name(args.out, it, config.dt),
                             state.pos.cpu().numpy().astype(file_dtype),

@@ -73,6 +73,11 @@
 //        bounded at N, so no padded source is ever read (the 2D weight of
 //        a pad would not underflow).
 //   part [S, N, D] float32 scratch (unused when S == 1).
+// The targets may be another array than the sources (co_direct_launch_ts:
+// tgt [Nt, D] against src [Ns, D], out and part over the Nt targets): the
+// block-on-block force of the sharded direct engines (parallel/mesh.py),
+// where a rank's rows meet a visiting block.  The kernel is the same; the
+// all-pairs entry passes one array as both.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -169,13 +174,16 @@ __device__ __forceinline__ void stage(float4* tile, const float* pos,
   }
 }
 
-// grid (ceil(N / (kThreads * kT)), S); split s sums the sources
-// [s * per, min((s + 1) * per, N)) and writes out[s, i] (S > 1, unscaled)
-// or kappa * sum (S == 1)
+// grid (ceil(Nt / (kThreads * kT)), S); split s sums the sources
+// [s * per, min((s + 1) * per, Ns)) of `pos` on the `nt` targets of `tgt`
+// (the same array in the all-pairs case: both are only read, so the
+// qualifiers hold) and writes out[s, i] (S > 1, unscaled) or kappa * sum
+// (S == 1)
 template <int DIM>
 __global__ void __launch_bounds__(kThreads, Geo<DIM>::kMinBlocks)
-direct_kernel(const float* __restrict__ pos, float* __restrict__ out, int n,
-              int per, float eps2, float scale) {
+direct_kernel(const float* __restrict__ tgt, const float* __restrict__ pos,
+              float* __restrict__ out, int nt, int n, int per, float eps2,
+              float scale) {
   constexpr int T = Geo<DIM>::kT;
   constexpr int V = Geo<DIM>::kVec;
   __shared__ float4 tile[V];
@@ -185,10 +193,10 @@ direct_kernel(const float* __restrict__ pos, float* __restrict__ out, int n,
 #pragma unroll
   for (int t = 0; t < T; ++t) {
     int64_t i = i0 + int64_t(t) * kThreads;
-    if (i >= n) i = n - 1;                   // computed, never written
-    tx[t] = pos[i * DIM];
-    ty[t] = pos[i * DIM + 1];
-    tz[t] = DIM == 3 ? pos[i * DIM + 2] : 0.f;
+    if (i >= nt) i = nt - 1;                 // computed, never written
+    tx[t] = tgt[i * DIM];
+    ty[t] = tgt[i * DIM + 1];
+    tz[t] = DIM == 3 ? tgt[i * DIM + 2] : 0.f;
     ax[t] = ay[t] = az[t] = 0.f;
   }
   const int64_t j_begin = int64_t(blockIdx.y) * per;
@@ -240,8 +248,8 @@ direct_kernel(const float* __restrict__ pos, float* __restrict__ out, int n,
 #pragma unroll
   for (int t = 0; t < T; ++t) {
     const int64_t i = i0 + int64_t(t) * kThreads;
-    if (i < n) {
-      float* o = out + (int64_t(blockIdx.y) * n + i) * DIM;
+    if (i < nt) {
+      float* o = out + (int64_t(blockIdx.y) * nt + i) * DIM;
       o[0] = scale * ax[t];
       o[1] = scale * ay[t];
       if (DIM == 3) o[2] = scale * az[t];
@@ -279,35 +287,46 @@ extern "C" int co_direct_geometry(int dim, int* targets, int* blocks_per_sm) {
                             blocks_per_sm, direct_kernel<2>, kThreads, 0));
 }
 
-// Launches the direct kernel (and, for S > 1, the split sum) on `stream`;
-// returns the cudaError_t of the launches (0 on success).  The sources are
-// cut into `splits` runs of `src_per_split`, each non-empty.  The caller
-// checks shapes and allocates `part` ([S, N, D]; may be null when S == 1)
-// and `out` ([N, D]).
-extern "C" int co_direct_launch(const float* pos, float* part, float* out,
-                                int n, int dim, int splits,
-                                int src_per_split, float eps2, float kappa,
-                                void* stream) {
-  if (n < 1 || (dim != 2 && dim != 3) || splits < 1 || splits > 65535 ||
+// Launches the direct kernel (and, for S > 1, the split sum) on `stream`
+// for the `nt` targets of `tgt` against the `n` sources of `src`; returns
+// the cudaError_t of the launches (0 on success).  The sources are cut
+// into `splits` runs of `src_per_split`, each non-empty.  The caller checks
+// shapes and allocates `part` ([S, Nt, D]; may be null when S == 1) and
+// `out` ([Nt, D]).
+extern "C" int co_direct_launch_ts(const float* tgt, const float* src,
+                                   float* part, float* out, int nt, int n,
+                                   int dim, int splits, int src_per_split,
+                                   float eps2, float kappa, void* stream) {
+  if (nt < 1 || n < 1 || (dim != 2 && dim != 3) || splits < 1 ||
+      splits > 65535 ||
       src_per_split < 1 || int64_t(splits) * src_per_split < n ||
       int64_t(splits - 1) * src_per_split >= n ||
       (splits > 1 && part == nullptr))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tpb = targets_per_block(dim);
-  const dim3 grid((n + tpb - 1) / tpb, splits);
+  const dim3 grid((nt + tpb - 1) / tpb, splits);
   float* dst = splits > 1 ? part : out;
   const float scale = splits > 1 ? 1.f : kappa;
   if (dim == 3)
-    direct_kernel<3><<<grid, kThreads, 0, st>>>(pos, dst, n, src_per_split,
-                                                eps2, scale);
+    direct_kernel<3><<<grid, kThreads, 0, st>>>(tgt, src, dst, nt, n,
+                                                src_per_split, eps2, scale);
   else
-    direct_kernel<2><<<grid, kThreads, 0, st>>>(pos, dst, n, src_per_split,
-                                                eps2, scale);
+    direct_kernel<2><<<grid, kThreads, 0, st>>>(tgt, src, dst, nt, n,
+                                                src_per_split, eps2, scale);
   cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess || splits == 1) return int(rc);
-  const int64_t nd = int64_t(n) * dim;
+  const int64_t nd = int64_t(nt) * dim;
   sum_splits<<<unsigned((nd + 255) / 256), 256, 0, st>>>(part, out, nd,
                                                           splits, kappa);
   return int(cudaGetLastError());
+}
+
+// The all-pairs case: `pos` [N, D] is both the targets and the sources.
+extern "C" int co_direct_launch(const float* pos, float* part, float* out,
+                                int n, int dim, int splits,
+                                int src_per_split, float eps2, float kappa,
+                                void* stream) {
+  return co_direct_launch_ts(pos, pos, part, out, n, n, dim, splits,
+                             src_per_split, eps2, kappa, stream);
 }

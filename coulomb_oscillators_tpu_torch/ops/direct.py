@@ -11,6 +11,11 @@ d / dist2^2 (4D), scaled by kappa = xi/N.  The j == i self term is d = 0.
     kernel ``csrc/direct.cu`` (the twin of the Pallas ``direct`` kernel,
     built with nvcc for sm_90a at first use, bound through ctypes) or
     raises.  There is no fallback between them;
+  * :func:`direct_targets` — the same law for targets against another
+    array of sources (a rank's rows against a visiting block, the
+    block-on-block force of ``parallel/mesh.py``): the same kernel through
+    its separate-targets entry on CUDA tensors, :func:`direct_targets_plain`
+    on CPU tensors;
   * :func:`direct_plain` — chunked broadcast, twin of ``direct_jnp``, and
     the kernel's plain version;
   * :func:`direct_kahan` — Kahan-compensated accuracy oracle (``direct3``,
@@ -47,6 +52,9 @@ def _bind(lib) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.co_direct_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, cf, cf, vp]
     lib.co_direct_launch.restype = ci
+    lib.co_direct_launch_ts.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                        cf, cf, vp]
+    lib.co_direct_launch_ts.restype = ci
     lib.co_direct_geometry.argtypes = [ci, vp, vp]
     lib.co_direct_geometry.restype = ci
 
@@ -75,14 +83,15 @@ def geometry(dim: int, lib=None) -> tuple:
 
 @functools.lru_cache(maxsize=256)
 def splits_for(n: int, sm_count: int, targets_per_block: int,
-               blocks_per_sm: int) -> tuple:
+               blocks_per_sm: int, n_targets: int | None = None) -> tuple:
     """(S, per): the n sources cut into S splits of `per` (a multiple of
     32; the last split shorter).  Of the split counts up to
     max(4, 4 x the card's resident slots / the target blocks), the one
-    whose grid of ceil(n / targets_per_block) x S blocks fills its last
-    wave of resident slots (blocks_per_sm a SM) best; the fewest splits
-    among equals."""
-    blocks = -(-n // targets_per_block)
+    whose grid of ceil(n_targets / targets_per_block) x S blocks fills its
+    last wave of resident slots (blocks_per_sm a SM) best; the fewest
+    splits among equals.  `n_targets` is n unless given (the
+    separate-targets entry)."""
+    blocks = -(-(n if n_targets is None else n_targets) // targets_per_block)
     slots = sm_count * blocks_per_sm
     best = None
     for want in range(1, min(max(4, 4 * slots // blocks),
@@ -112,20 +121,48 @@ def direct(pos: torch.Tensor, eps2: float, kappa: float) -> torch.Tensor:
     return launch(pos, eps2, kappa)
 
 
+def direct_targets(targets: torch.Tensor, src: torch.Tensor, eps2: float,
+                   kappa: float) -> torch.Tensor:
+    """Force of all `src` [Ns, D] on the `targets` rows [Nt, D]: [Nt, D].
+    CPU tensors take :func:`direct_targets_plain`; float32 CUDA tensors in
+    D = 2 or 3 take the kernel's separate-targets entry, or raise."""
+    if (targets.dim() != 2 or src.dim() != 2
+            or targets.shape[1] != src.shape[1]
+            or targets.dtype != src.dtype or targets.device != src.device):
+        raise ValueError(f"targets [Nt, D] and src [Ns, D] must share D, "
+                         f"dtype and device, got {tuple(targets.shape)} "
+                         f"{targets.dtype} {targets.device} and "
+                         f"{tuple(src.shape)} {src.dtype} {src.device}")
+    if targets.device.type == "cpu":
+        return direct_targets_plain(targets, src, eps2, kappa)
+    if targets.shape[1] not in (2, 3) or targets.dtype != torch.float32:
+        raise ValueError(f"the direct kernel takes float32 [N, 2] or "
+                         f"[N, 3], got {targets.dtype} "
+                         f"{tuple(targets.shape)}")
+    if targets.device.type != "cuda":
+        raise ValueError(f"no direct path for device {targets.device}")
+    return launch(src, eps2, kappa, targets=targets)
+
+
 def launch(pos: torch.Tensor, eps2: float, kappa: float,
-           splits: int | None = None) -> torch.Tensor:
+           splits: int | None = None,
+           targets: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel on a float32 CUDA tensor [N, D] that :func:`direct`
     accepted, with the source range cut into `splits` (None: the
     :func:`splits_for` rule); every split count gives the same sum to
-    rounding.  Counts the launch."""
+    rounding.  `targets` [Nt, D] (None: `pos` itself) are the rows the
+    force is taken on.  Counts the launch."""
     global launches
     n, dim = pos.shape
     pos = pos.contiguous()
+    tgt = pos if targets is None else targets.contiguous()
+    nt = tgt.shape[0]
     if splits is None:
         if pos.device not in _sm_count:
             _sm_count[pos.device] = torch.cuda.get_device_properties(
                 pos.device).multi_processor_count
-        S, per = splits_for(n, _sm_count[pos.device], *geometry(dim))
+        S, per = splits_for(n, _sm_count[pos.device], *geometry(dim),
+                            n_targets=None if targets is None else nt)
     else:
         per = -(-n // splits)
         S = -(-n // per)
@@ -133,14 +170,14 @@ def launch(pos: torch.Tensor, eps2: float, kappa: float,
             raise ValueError(f"{splits} splits of {n} sources leave one "
                              f"empty")
     lib = library.get()
-    out = torch.empty_like(pos)
-    part = torch.empty((S, n, dim), dtype=pos.dtype, device=pos.device) \
+    out = torch.empty_like(tgt)
+    part = torch.empty((S, nt, dim), dtype=pos.dtype, device=pos.device) \
         if S > 1 else None
     stream = torch.cuda.current_stream(pos.device).cuda_stream
-    rc = lib.co_direct_launch(pos.data_ptr(),
-                              None if part is None else part.data_ptr(),
-                              out.data_ptr(), n, dim, S, per, float(eps2),
-                              float(kappa), stream)
+    rc = lib.co_direct_launch_ts(tgt.data_ptr(), pos.data_ptr(),
+                                 None if part is None else part.data_ptr(),
+                                 out.data_ptr(), nt, n, dim, S, per,
+                                 float(eps2), float(kappa), stream)
     if rc != 0:
         raise RuntimeError(f"direct kernel launch failed: cudaError_t {rc}")
     launches += 1
@@ -170,9 +207,18 @@ def _acc_rows(rows: torch.Tensor, src: torch.Tensor, eps2: float,
 def direct_plain(pos: torch.Tensor, eps2: float, kappa: float,
                  row_chunk: int = 1024) -> torch.Tensor:
     """Chunked O(N^2) pairwise force; [N, D] -> [N, D]."""
-    n, dim = pos.shape
-    out = torch.cat([_acc_rows(pos[i:i + row_chunk], pos, eps2, dim)
-                     for i in range(0, n, row_chunk)])
+    return direct_targets_plain(pos, pos, eps2, kappa, row_chunk)
+
+
+def direct_targets_plain(targets: torch.Tensor, src: torch.Tensor,
+                         eps2: float, kappa: float,
+                         row_chunk: int = 1024) -> torch.Tensor:
+    """Chunked force of all `src` on the `targets` rows (the twin of the
+    reference's ``_local_direct``, kappa-scaled), and the plain version of
+    the kernel's separate-targets entry."""
+    dim = targets.shape[1]
+    out = torch.cat([_acc_rows(targets[i:i + row_chunk], src, eps2, dim)
+                     for i in range(0, targets.shape[0], row_chunk)])
     return kappa * out
 
 

@@ -839,30 +839,40 @@ class KdFmmEngine:
 
     # ---- pipeline stages (each callable alone, for profiling) ----
 
-    def _leaf_frame(self, ppad: torch.Tensor, fs: FmmState):
-        """Leaf-frame monomials V [G, C, S_Lf] of the normalized offsets (0
-        at pads) and the leaf length scales [G].  Layouts nest, so the P2M
-        reads its slots from the L2P monomials."""
-        G = self.G_sub
-        leaf0 = _heap_off(self.L)
-        leafc = fs.center[leaf0:leaf0 + G]
-        leafl = fs.lam[leaf0:leaf0 + G]
+    # The three leaf stages take a run of leaves: `ppad` (or V) holds the
+    # Gl leaves [lo, lo + Gl), all G of them by default; a rank of the
+    # particle-sharded force (parallel/fmm_pshard.py) passes its own run.
+
+    def _leaf_frame(self, ppad: torch.Tensor, fs: FmmState, lo: int = 0):
+        """Leaf-frame monomials V [Gl, C, S_Lf] of the normalized offsets
+        (0 at pads) and the leaf length scales [Gl].  Layouts nest, so the
+        P2M reads its slots from the L2P monomials."""
+        Gl = ppad.shape[0]
+        leaf0 = _heap_off(self.L) + lo
+        leafc = fs.center[leaf0:leaf0 + Gl]
+        leafl = fs.lam[leaf0:leaf0 + Gl]
         e = (ppad - leafc[:, None, :]) / leafl[:, None, None]
-        e = torch.where(self.dev(ppad.device).mask3[..., None], e, 0.0)
+        mask3 = self.dev(ppad.device).mask3[lo:lo + Gl]
+        e = torch.where(mask3[..., None], e, 0.0)
         return mop.eval_monomial_cols(e, self.tables.PL, self.dim), leafl
+
+    def _p2m(self, V: torch.Tensor, lo: int = 0) -> torch.Tensor:
+        """P2M from the leaf monomials: leaf multipoles [Gl, S_M]."""
+        mask3 = self.dev(V.device).mask3[lo:lo + V.shape[0]]
+        return mop.p2m_from_cols(self.tables, V, mask3)
 
     def _multipoles_from(self, V: torch.Tensor, fs: FmmState) -> torch.Tensor:
         """P2M from the leaf monomials, then M2M up: [Mheap, S_M]."""
-        mask3 = self.dev(V.device).mask3
-        return self.m2m_up(mop.p2m_from_cols(self.tables, V, mask3), fs)
+        return self.m2m_up(self._p2m(V), fs)
 
     def _l2p(self, V: torch.Tensor, leafl: torch.Tensor,
-             leaf_local: torch.Tensor) -> torch.Tensor:
-        """L2P: far-field acceleration [G, C, dim] (unscaled, 0 at pads)
-        from the leaf locals [G, S_Lt]."""
-        Lf = mop.expand_L(self.tables, leaf_local)          # [G, S_Lf]
+             leaf_local: torch.Tensor, lo: int = 0) -> torch.Tensor:
+        """L2P: far-field acceleration [Gl, C, dim] (unscaled, 0 at pads)
+        from the leaf locals [Gl, S_Lt]."""
+        Lf = mop.expand_L(self.tables, leaf_local)          # [Gl, S_Lf]
         far = mop.l2p_field_cols(self.tables, Lf, V, leafl)
-        return far * self.dev(V.device).mask3[..., None]
+        mask3 = self.dev(V.device).mask3[lo:lo + V.shape[0]]
+        return far * mask3[..., None]
 
     def _stage_multipoles(self, ppad: torch.Tensor,
                           fs: FmmState) -> torch.Tensor:

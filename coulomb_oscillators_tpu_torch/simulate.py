@@ -1,5 +1,5 @@
 """Simulation driver: integrator x force engine, with the kd engine's
-async rebuild pipeline.
+async rebuild pipeline and its multi-device (mesh) mode.
 
 Twin of ``coulomb_oscillators_tpu/simulate.py`` (reference sim loop
 main3.cu:832-874).  Three paths:
@@ -17,7 +17,18 @@ main3.cu:832-874).  Three paths:
     by the native host builder, or with ``tree_async_build="device"`` by
     the device builders.
 
-Not ported (ROADMAP.md): mesh mode.
+Mesh mode (``Simulator(..., mesh=parallel.mesh.make_mesh(...))``, kd
+engines only) runs the padded window loop particle-sharded
+(``parallel/fmm_pshard.py``).  The reference drives its mesh from one
+process; the port is SPMD: every rank constructs the same Simulator and
+calls the same methods with the same full ``ParticleState``, keeps only its
+leaf-block shard between calls, and gets the full state back from
+:meth:`run` (one all_gather of the padded triple).  At a window boundary
+every rank runs the same deterministic rebuild on the gathered positions,
+so all ranks adopt identical lists without a broadcast, and the background
+rebuild thread makes no collective call.  The sharded window evaluates the
+force against the frozen tree without the geometry refresh, as the
+reference's mesh mode does.
 """
 
 from __future__ import annotations
@@ -85,10 +96,11 @@ class Simulator:
 
     def __init__(self, config: SimConfig, n: int, engine: str = "direct",
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh mode is not ported yet: ROADMAP.md, multi-GPU (the "
-                "last item of \"What remains\")")
+        """mesh: optional ``parallel.mesh.Mesh``: runs the kd-FMM padded
+        window particle-sharded over its ranks (each owns n/P particles).
+        Only supported for the kd engines."""
+        if mesh is not None and not engine.endswith("_kd"):
+            raise ValueError(f"mesh mode needs a kd engine, got {engine!r}")
         self.config = config
         self.n = n
         self.engine_name = engine
@@ -96,7 +108,10 @@ class Simulator:
         self._fmm = None
         self._fstate = None
         self._padded = None       # kd engine: ParticleState of [G, C, dim]
-        self._pending = None      # in-flight device rebuild
+                                  # (mesh mode: this rank's [G/P, C, dim])
+        self._pending = None      # in-flight device (or mesh-mode) rebuild
+        self._mesh = mesh
+        self._ps = None           # PShardedKdFmm when mesh is set
         if not (engine.startswith("fmm") or engine == "appel"):
             from coulomb_oscillators_tpu_torch.models.oscillator import (
                 make_oscillator_force)
@@ -122,8 +137,18 @@ class Simulator:
         # full builds
         self.rebuilds = collections.Counter()
         self._use_padded = hasattr(self._fmm, "force_padded")
-        self._scan_step = (self._make_fmm_scan_padded() if self._use_padded
-                           else self._make_fmm_scan())
+        if mesh is not None:
+            from coulomb_oscillators_tpu_torch.parallel.fmm_pshard import (
+                make_psharded_scan)
+            self._ps, scan = make_psharded_scan(self._fmm, mesh, config,
+                                                self.omega0_sq)
+            self._plists = self._phops = None
+            self._scan_step = lambda pstate, fstate, k: scan(
+                pstate, fstate, self._plists, self._phops, k)
+        elif self._use_padded:
+            self._scan_step = self._make_fmm_scan_padded()
+        else:
+            self._scan_step = self._make_fmm_scan()
 
     # ------------------------------------------------------------------ #
     def _make_fmm_scan(self):
@@ -173,13 +198,39 @@ class Simulator:
         return scan_k
 
     def _pad_state(self, state: ParticleState) -> ParticleState:
+        """The full original-order state as padded blocks (mesh mode: this
+        rank's shard of them)."""
         from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR
         eng, fs = self._fmm, self._fstate
-        return ParticleState(eng.pad_array(state.pos, fs, fill=FAR),
-                             eng.pad_array(state.vel, fs),
-                             eng.pad_array(state.acc, fs))
+        out = ParticleState(eng.pad_array(state.pos, fs, fill=FAR),
+                            eng.pad_array(state.vel, fs),
+                            eng.pad_array(state.acc, fs))
+        if self._ps is not None:
+            out = ParticleState(*(self._ps.shard_padded(x) for x in out))
+        return out
+
+    def _set_fstate(self, fstate) -> None:
+        """Adopt a tree; mesh mode regroups its pair lists for the ranks
+        (the reference's ``_reshard_lists``)."""
+        self._fstate = fstate
+        if self._ps is not None:
+            from coulomb_oscillators_tpu_torch.parallel.fmm_pshard import (
+                shard_pair_lists)
+            self._plists, self._phops = shard_pair_lists(
+                self._fmm, fstate, self._ps.ndev)
+
+    def _full_padded(self) -> ParticleState:
+        """The padded state of all leaves (mesh mode: one all_gather of
+        the ranks' (pos, vel, acc) shards)."""
+        if self._ps is None:
+            return self._padded
+        dim = self._fmm.dim
+        full = self._ps.gather_padded(torch.cat(tuple(self._padded), dim=2))
+        return ParticleState(*(full[..., i * dim:(i + 1) * dim]
+                               for i in range(3)))
 
     def _unpad_state(self, pstate: ParticleState) -> ParticleState:
+        """Padded blocks of all leaves -> the original-order state."""
         eng, fs = self._fmm, self._fstate
         return ParticleState(eng.unpad_array(pstate.pos, fs),
                              eng.unpad_array(pstate.vel, fs),
@@ -192,7 +243,7 @@ class Simulator:
         if self._fmm is None:
             return state._replace(acc=self._plain_force(state.pos))
         self._set_stale_margin(state)
-        self._fstate = self._fmm.build(state.pos)
+        self._set_fstate(self._fmm.build(state.pos))
         self._steps_since_build = 0
         acc = self._fmm.force(state.pos, self._fstate)
         out = state._replace(acc=add_elastic(state.pos, acc, self.omega0_sq))
@@ -219,7 +270,7 @@ class Simulator:
         if (self._padded is None or self._fstate is None
                 or state is not self._last_out):
             self._drop_pending()
-            self._fstate = self._fmm.build(state.pos)
+            self._set_fstate(self._fmm.build(state.pos))
             self._steps_since_build = 0
             self._padded = self._pad_state(state)
         self.advance_padded(steps)
@@ -244,8 +295,9 @@ class Simulator:
 
     def advance_padded(self, steps: int) -> torch.Tensor:
         """Advance on the padded path without unpadding at the end; returns
-        the padded positions.  Requires an active padded run (init_acc or
-        run first); :meth:`current_state` unpads."""
+        the padded positions (mesh mode: this rank's shard, with no gather).
+        Requires an active padded run (init_acc or run first);
+        :meth:`current_state` unpads."""
         if self._padded is None or self._fstate is None:
             raise RuntimeError("advance_padded requires an active padded "
                                "run (call init_acc + run first)")
@@ -265,14 +317,51 @@ class Simulator:
         up (:meth:`advance_padded` does so before its next step); a probe
         calls it to read the state a new window starts from."""
         if self._steps_since_build >= max(self.config.tree_steps, 1):
-            self._rebuild_padded()
+            if self._ps is not None:
+                self._rebuild_psharded()
+            else:
+                self._rebuild_padded()
             self._steps_since_build = 0
 
     def current_state(self) -> ParticleState:
-        """Unpad and return the current state (resumable via run())."""
-        out = self._unpad_state(self._padded)
+        """Unpad and return the current state (resumable via run()); in
+        mesh mode the full state, on every rank."""
+        out = self._unpad_state(self._full_padded())
         self._last_out = out
         return out
+
+    def _rebuild_psharded(self) -> None:
+        """Mesh-mode twin of :meth:`_rebuild_padded`, with the reference's
+        one-slot pipeline: adopt the background rebuild submitted at the
+        previous boundary (one window stale), or refresh bounds and lists
+        synchronously while the pipeline primes; regroup the lists for the
+        ranks; hand the next rebuild, from this boundary's positions, to
+        the worker.  Sync (or without the native library): a blocking
+        rebuild.  Every rank builds from the same gathered positions; the
+        worker thread calls no collective."""
+        eng = self._fmm
+        full = self._full_padded()
+        cur = self._unpad_state(full)
+        device = cur.pos.device
+        if not (self.config.tree_async and native.available()):
+            self._set_fstate(eng.build(cur.pos))
+            self._padded = self._pad_state(cur)
+            self.rebuilds["sync_full"] += 1
+            return
+        if self._pending is not None:
+            t0 = time.perf_counter()
+            fstate = self._pending.result()
+            self._waited(time.perf_counter() - t0)
+            self.rebuilds["adopt_full"] += 1
+        else:
+            fstate = eng.refresh(full.pos, self._fstate)
+            self.rebuilds["sync_refresh"] += 1
+        self._set_fstate(fstate)
+        self._padded = self._pad_state(cur)
+        pos_h = _HostCopy(cur.pos)
+        self._pending = self._executor().submit(
+            lambda: eng.adopt(
+                eng.build_host(torch.from_numpy(pos_h.numpy())), device))
 
     def _rebuild_padded(self) -> None:
         """Window-boundary rebuild of the padded state.

@@ -178,7 +178,8 @@ def test_accuracy_autotune(tmp_path, capsys):
 
 def test_cli_needs_a_card_or_cpu(tmp_path, monkeypatch, capsys):
     """Without a CUDA device and without -cpu the CLI exits non-zero, says
-    why, and writes nothing; -chips is not ported."""
+    why, and writes nothing; -chips beyond the visible devices is refused
+    first, with the reference's message and -1."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "none"
     rc = cli.main(["-n", "64", "-iters", "1", "-steps", "1",
@@ -186,8 +187,9 @@ def test_cli_needs_a_card_or_cpu(tmp_path, monkeypatch, capsys):
     assert rc != 0
     assert "-cpu" in capsys.readouterr().err
     assert not out.exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["-chips", "2", "-cpu"])
+    assert cli.main(["-chips", "2", "-n", "64", "-o", str(out)]) == -1
+    assert "-chips 2: only 0 devices visible" in capsys.readouterr().out
+    assert not out.exists()
 
 
 def test_roundtrip_3d_f32_bytes_equal_reference(tmp_path, rng):

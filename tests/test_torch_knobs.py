@@ -62,6 +62,32 @@ def test_simulator_init_signatures_equal():
     assert _params(tsim.Simulator.__init__)["engine"] == "direct"
 
 
+def test_parallel_modules_have_the_references_public_names():
+    """Every public function and class the reference's three parallel
+    modules define exists in the port's (the mesh itself is the port's
+    ``Mesh``, the reference's comes from JAX)."""
+    import importlib
+    for mod in ("mesh", "fmm_shard", "fmm_pshard"):
+        j = importlib.import_module(f"coulomb_oscillators_tpu.parallel.{mod}")
+        t = importlib.import_module(
+            f"coulomb_oscillators_tpu_torch.parallel.{mod}")
+        names = [k for k, v in vars(j).items() if not k.startswith("_")
+                 and getattr(v, "__module__", None) == j.__name__]
+        assert names, mod
+        missing = [k for k in names if not callable(getattr(t, k, None))]
+        assert not missing, (mod, missing)
+        for k in names:
+            if inspect.isfunction(getattr(j, k)):
+                jp = list(inspect.signature(getattr(j, k)).parameters)
+                tp = list(inspect.signature(getattr(t, k)).parameters)
+                assert tp[:len(jp)] == jp, (mod, k, jp, tp)
+    from coulomb_oscillators_tpu.parallel import fmm_pshard as jps
+    from coulomb_oscillators_tpu_torch.parallel import fmm_pshard as tps
+    assert set(jps.PShardLists._fields) - set(tps.PShardLists._fields) == \
+        {"m2l_h2", "m2l_w", "m2l_logc"}          # stored-fold M2L only
+    assert set(tps.PShardLists._fields) <= set(jps.PShardLists._fields)
+
+
 def test_default_engine_is_direct_in_both():
     """Simulator(config, n) runs the plain direct engine in both packages
     (no FMM engine object is made)."""

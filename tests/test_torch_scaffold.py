@@ -197,10 +197,18 @@ def test_port_imports_no_jax():
         "new = ['utils.font', 'utils.profiling', 'scripts._common', "
         "'scripts.view', 'scripts.profile_force', "
         "'scripts.stale_margin_probe', 'scripts.cadence_probe', "
-        "'scripts.bench']\n"
+        "'scripts.bench', 'parallel.mesh', 'parallel.fmm_shard', "
+        "'parallel.fmm_pshard', 'scripts.graft_entry', "
+        "'scripts.pshard_scaling']\n"
         "missing = [m for m in new if P.__name__ + '.' + m not in "
         "sys.modules]\n"
         "assert not missing, missing\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_parallel_workers\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'coulomb_oscillators_tpu' or "
+        "k.startswith('coulomb_oscillators_tpu.'))\n"
+        "assert not bad, bad\n"
         "print('ok', len([k for k in sys.modules if "
         "k.startswith('coulomb_oscillators_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,6 +1,7 @@
 """Port vs reference: the Simulator's trajectory across rebuild boundaries
 (sync, async, and the pipelined/refresh cadence), the auto stale margin,
-and what the port's Simulator refuses.
+and what the port's Simulator refuses (mesh mode itself is held against the
+reference in tests/test_torch_mesh_sim.py).
 """
 
 import numpy as np
@@ -124,14 +125,18 @@ def test_stale_margin_config(beam):
 def test_unported_modes_raise(kw, engine):
     """Every engine and the device builder construct now (the Simulator
     picks the padded window loop for kd engines, the original-order loop
-    for the uniform-grid ones); mesh mode still raises."""
+    for the uniform-grid ones); mesh mode takes a kd engine only, and
+    refuses any other with the reference's ValueError."""
     dim = 2 if engine.endswith("2_kd") else 3
     sim = TSim(TConfig(dim=dim, omega0=(1.095, 1.0, 1.0)[:dim], **kw), N,
                engine=engine)
     assert sim._use_padded == engine.endswith("_kd")
     assert sim._fmm.dim == dim
     sim.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if not engine.endswith("_kd"):
+        with pytest.raises(ValueError, match="mesh mode needs a kd engine"):
+            TSim(TConfig(), N, engine=engine, mesh=object())
+    with pytest.raises(ValueError, match="mesh mode needs a kd engine"):
         TSim(TConfig(), N, mesh=object())
 
 
