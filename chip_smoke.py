@@ -3,7 +3,8 @@
 
 Drives the port's paths through the entry points a user calls, and checks
 them: the kd-tree FMM Simulator at N=1,000,000 (the README's Gaussian beam,
-p=6, r=1.67), and the CLI's direct engine at its default N=30001.
+p=6, r=1.67), and the CLI's direct engine at its default N=30001.  The
+Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
 
   1. device: a CUDA card, its name and power limit, the toolchain, and
      float32 matmuls kept out of TF32;
@@ -94,7 +95,19 @@ p=6, r=1.67), and the CLI's direct engine at its default N=30001.
      names and sizes; -chips 2 is refused with -1), and the dry run of
      scripts/graft_entry.py on 2 ranks sharing the card (with the default
      placement it raises: one device).  A rank that raises fails the run.
-     The timings are labelled "N ranks sharing one <card>".
+     The timings are labelled "N ranks sharing one <card>";
+ 16. graphs: the Simulator's CUDA graphs (utils/graphs.py; every phase
+     above runs with them, as a user's run does) against the same steps
+     run eagerly (CO_CUDA_GRAPHS=0) from one start: Simulator("direct") on
+     the CLI's 3D beam at N=30001, 200 steps, positions bitwise equal;
+     fmm3_kd at N=1M, p=6, r=1.67, 16/2/2, three windows and a step (one
+     adopted full re-sort with its repad), twice eagerly and once with
+     graphs, graph against eager within max(2 x eager against eager, 1e-6)
+     of max|pos|; fmm3_traceless at N=1M (uniform box) and fmm2_kd at
+     N=100k, 2 windows of 8 steps, within 1e-5; the kernels' launches
+     equal the force evaluations in both modes; s/step, CUDA-event
+     ms/step, captures, capture seconds and peak memory of each run,
+     printed with the card's name and power limit.
 
 Any failure raises: the script then exits non-zero without its last line.
 Usage, from the repository root:  python3 chip_smoke.py
@@ -107,6 +120,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 N = 1_000_000
 X_STD = (0.003, 0.001, 0.01)
@@ -889,6 +903,160 @@ def _phase_multi_device(dev, smi, torch):
     return p2p_by_run, direct_by_scheme, ts_row
 
 
+def _sim_windows(torch, graphs_on, cfg, n, engine, pos_h, vel_h, windows,
+                 dev, busy=False):
+    """init_acc, then one ``run`` per entry of `windows` (its step count) on
+    a Simulator built with ``CO_CUDA_GRAPHS`` 1 or 0.  Returns the final
+    positions, each run's host s/step (synchronised) and CUDA-event
+    ms/step, the captures and their seconds, the peaks of allocated and of
+    reserved device memory from init_acc on (a graph's pool is reserved),
+    the kernels' launches and the rebuilds.  With `busy`, one more run of
+    the last window's length under torch.profiler gives the kernels'
+    device ms/step, and the busy share is that over the last untraced
+    run's ms/step (both runs start with their window's rebuild)."""
+    from coulomb_oscillators_tpu_torch.ops import direct as D
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.simulate import Simulator
+    from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
+    os.environ["CO_CUDA_GRAPHS"] = "1" if graphs_on else "0"
+    try:
+        sim = Simulator(cfg, n, engine)
+    finally:
+        del os.environ["CO_CUDA_GRAPHS"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p2p_cuda.launches = D.launches = 0
+    out = dict(s_per_step=[], event_ms_per_step=[])
+    try:
+        st = sim.init_acc(particle_state_from_numpy(pos_h, vel_h, device=dev))
+        for k in windows:
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            tw = time.perf_counter()
+            e0.record()
+            st = sim.run(st, k)
+            e1.record()
+            torch.cuda.synchronize()
+            out["s_per_step"].append((time.perf_counter() - tw) / k)
+            out["event_ms_per_step"].append(e0.elapsed_time(e1) / k)
+        if busy:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                st = sim.run(st, windows[-1])
+                torch.cuda.synchronize()
+            us = sum(getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0)
+                     for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+            out["device_ms_per_step"] = us / 1e3 / windows[-1]
+            out["busy_share"] = (out["device_ms_per_step"]
+                                 / (1e3 * out["s_per_step"][-1]))
+    finally:
+        sim.close()
+    g = sim.graph
+    out.update(pos=st.pos, graphs=graphs_on,
+               captures=g.captures if g else 0,
+               capture_s=g.capture_seconds if g else 0.0,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               peak_reserved_bytes=torch.cuda.max_memory_reserved(),
+               p2p_launches=p2p_cuda.launches, direct_launches=D.launches,
+               rebuilds=dict(getattr(sim, "rebuilds", {})))
+    _require(bool(torch.isfinite(st.pos).all()), f"{engine} finite "
+             f"(graphs={graphs_on})")
+    return out
+
+
+def _phase_graphs(dev, smi, torch):
+    """Phase 16: the Simulator's CUDA graphs against its eager steps."""
+    import numpy as np
+    from coulomb_oscillators_tpu_torch import SimConfig
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+
+    def line(name, r):
+        keys = ("s_per_step", "event_ms_per_step", "captures", "capture_s",
+                "peak_bytes", "peak_reserved_bytes", "p2p_launches",
+                "direct_launches", "rebuilds", "device_ms_per_step",
+                "busy_share")
+        print(f"graphs {name} graphs={r['graphs']} ({smi}): "
+              + json.dumps({k: r[k] for k in keys if k in r}))
+
+    rows = {}
+    # (a) the direct engine on the CLI's 3D beam: bitwise equal
+    c3, p3, v3 = _cli_beams(N_CLI)[3]
+    a = [_sim_windows(torch, g, c3, N_CLI, "direct", p3, v3, (20, 180), dev)
+         for g in (True, False)]
+    for r in a:
+        line(f"direct N={N_CLI}", r)
+        _require(r["direct_launches"] == 1 + 200, f"direct launches "
+                 f"{r['direct_launches']} == 201 force evaluations")
+    _require(a[0]["captures"] == 1, f"direct: one capture ({a[0]['captures']})")
+    _require(torch.equal(a[0]["pos"], a[1]["pos"]),
+             "direct: graph and eager positions bitwise equal")
+    print(f"graphs direct N={N_CLI}: 200 steps bitwise equal; ms/step "
+          f"(CUDA events, 180 steps) graph "
+          f"{a[0]['event_ms_per_step'][1]:.4f} eager "
+          f"{a[1]['event_ms_per_step'][1]:.4f} ({smi})")
+    rows["direct"] = a
+
+    # (b) the kd window at N=1M, p=6, r=1.67, 16/2/2: 3 windows and one
+    # step, so that the full re-sort submitted at the first boundary is
+    # adopted with its repad; eager twice, then graphs
+    cfg = SimConfig(fmm_order=6, tree_radius=1.67, tree_steps=16,
+                    tree_resort_every=2, tree_pipeline=2)
+    u = tuple(w * x for w, x in zip(cfg.omega0, X_STD))
+    ph, vh = ID.init_gaussian(N, X_STD, u, seed=SEED)
+    wins = (16, 16, 16, 1)
+    b = [_sim_windows(torch, g, cfg, N, "fmm3_kd", ph, vh, wins, dev)
+         for g in (False, False, True)]
+    for r in b:
+        line(f"fmm3_kd N={N} 16/2/2", r)
+        _require(r["p2p_launches"] == 1 + sum(wins), f"kd: P2P launches "
+                 f"{r['p2p_launches']} == {1 + sum(wins)} force evaluations")
+        _require(r["rebuilds"].get("adopt_full") == 1,
+                 f"kd: one adopted re-sort {r['rebuilds']}")
+    ee, _ = _rel_dev(b[1]["pos"], b[0]["pos"])
+    ge, _ = _rel_dev(b[2]["pos"], b[0]["pos"])
+    print(f"graphs fmm3_kd N={N}: max|dpos|/max|pos| graph vs eager {ge:.3e},"
+          f" eager vs eager {ee:.3e}; s/step (window 3) graph "
+          f"{b[2]['s_per_step'][2]:.4f} eager {b[0]['s_per_step'][2]:.4f} / "
+          f"{b[1]['s_per_step'][2]:.4f}; captures {b[2]['captures']} in "
+          f"{b[2]['capture_s']:.2f} s; peak GiB allocated / reserved: "
+          f"graph {b[2]['peak_bytes'] / 2**30:.2f} / "
+          f"{b[2]['peak_reserved_bytes'] / 2**30:.2f}, eager "
+          f"{b[0]['peak_bytes'] / 2**30:.2f} / "
+          f"{b[0]['peak_reserved_bytes'] / 2**30:.2f} ({smi})")
+    _require(ge <= max(2 * ee, 1e-6), f"kd graph vs eager {ge:.3e} <= "
+             f"max(2 x {ee:.3e}, 1e-6)")
+    rows["fmm3_kd"] = b
+
+    # (c) fmm3_traceless at N=1M (uniform box) and fmm2_kd at N=100k (2D
+    # beam): 2 windows of 8 steps
+    n2 = 100_000
+    c2 = SimConfig(dim=2, omega0=(1.095, 1.0), fmm_order=4, tree_radius=2.0)
+    u2 = tuple(w * x for w, x in zip(c2.omega0, X_STD[:2]))
+    p2, v2 = ID.init_gaussian(n2, X_STD[:2], u2, dim=2, seed=SEED)
+    pu = _uniform_box(N, 3)
+    for name, cfg, n, ph, vh in (
+            ("fmm3_traceless", SimConfig(fmm_order=3, tree_steps=8), N, pu,
+             np.zeros_like(pu)),
+            ("fmm2_kd", c2, n2, p2, v2)):
+        c = [_sim_windows(torch, g, cfg, n, name, ph, vh, (8, 8), dev,
+                          busy=True) for g in (True, False)]
+        for r in c:
+            line(f"{name} N={n}", r)
+        d, _ = _rel_dev(c[0]["pos"], c[1]["pos"])
+        print(f"graphs {name} N={n}: graph vs eager {d:.3e} of max|pos|; "
+              f"s/step (window 2) graph {c[0]['s_per_step'][1]:.4f} eager "
+              f"{c[1]['s_per_step'][1]:.4f}; busy graph "
+              f"{100 * c[0]['busy_share']:.1f}% eager "
+              f"{100 * c[1]['busy_share']:.1f}%; captures {c[0]['captures']} "
+              f"in {c[0]['capture_s']:.2f} s ({smi})")
+        _require(d <= 1e-5, f"{name} graph vs eager {d:.3e} <= 1e-5")
+        rows[name] = c
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -918,7 +1086,7 @@ def main() -> int:
     from coulomb_oscillators_tpu_torch.simulate import Simulator
     from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
     from coulomb_oscillators_tpu_torch.utils import io as SIO
-    from coulomb_oscillators_tpu_torch.utils import roofline
+    from coulomb_oscillators_tpu_torch.utils import graphs, roofline
 
     dev = torch.device("cuda", 0)
     smi = _smi()
@@ -1113,7 +1281,6 @@ def main() -> int:
     # an independent count of force evaluations: every "direct" Coulomb
     # force the CLI builds goes through make_coulomb_force
     make_coulomb = M.make_coulomb_force
-    force_evals = [0]
 
     def counting_coulomb(config, n, engine="direct"):
         f = make_coulomb(config, n, engine)
@@ -1121,10 +1288,14 @@ def main() -> int:
             return f
 
         def counted(p):
-            force_evals[0] += 1
+            counter.evals += 1
             return f(p)
         return counted
 
+    # a captured step calls `counted` once; each replay advances the
+    # count by what the capture added, as it does the launch counters
+    counter = types.SimpleNamespace(evals=0)
+    graphs.register_counter(counter, "evals")
     per_step = I.FORCE_EVALS["leapfrog"]
     with tempfile.TemporaryDirectory() as tmp:
         runs = [
@@ -1167,21 +1338,22 @@ def main() -> int:
                       f"{len(got)} snapshots of {size} bytes")
             sim_evals = sum(1 + (int(a[a.index("-iters") + 1]) + 1) * per_step
                             for _, a, *_ in runs)
-            _require(force_evals[0] == sim_evals == D.launches,
+            _require(counter.evals == sim_evals == D.launches,
                      f"direct launches {D.launches} == force evaluations "
-                     f"{force_evals[0]} == {sim_evals}")
+                     f"{counter.evals} == {sim_evals}")
             tc = time.perf_counter()
             _require(cli.main(["-test", "-engine", "direct", "-n",
                                str(N_CLI)]) == 0, "cli -test")
             tc = time.perf_counter() - tc
         finally:
             M.make_coulomb_force = make_coulomb
+            graphs.unregister_counter(counter, "evals")
         direct_launches = D.launches
-    _require(direct_launches == force_evals[0] > sim_evals,
+    _require(direct_launches == counter.evals > sim_evals,
              f"direct launches {direct_launches} == force evaluations "
-             f"{force_evals[0]} (with -test)")
+             f"{counter.evals} (with -test)")
     print(f"cli -test: {tc:.3f} s; direct launches {direct_launches} = "
-          f"force evals {force_evals[0]}")
+          f"force evals {counter.evals}")
     _phase("cli", t0)
 
     # ---- 8. energy -----------------------------------------------------
@@ -1262,6 +1434,11 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_p2p, mesh_direct, ts_row = _phase_multi_device(dev, smi, torch)
     _phase("multi-device", t0)
+
+    # ---- 16. CUDA graphs against eager steps ---------------------------
+    t0 = time.perf_counter()
+    _phase_graphs(dev, smi, torch)
+    _phase("graphs", t0)
 
     row, drow = p2p_rows[0], direct_rows[3, N_CLI]
     # no single PyTorch call computes a masked leaf-pair sum or an

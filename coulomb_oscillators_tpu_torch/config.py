@@ -13,9 +13,20 @@ precision and dimensionality are runtime config, not #defines.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
+
+
+@functools.lru_cache(maxsize=256)
+def round_to_dtype(x: float, dtype: torch.dtype) -> float:
+    """A binary64 constant rounded to `dtype`, returned as the Python float
+    of that exact value (the reference's ``dtype.type(x)``), so a multiply
+    by it sees no second rounding and no device copy.  Cached: a step
+    rounds its constants once per dtype, not once per call."""
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
 
 # Default trap frequencies / distribution moments
 # (reference: Simulation/main3.cu:230-245).

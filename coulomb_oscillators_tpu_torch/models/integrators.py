@@ -12,6 +12,7 @@ from typing import Callable, Sequence, Tuple
 
 import torch
 
+from coulomb_oscillators_tpu_torch.config import round_to_dtype
 from coulomb_oscillators_tpu_torch.state import ParticleState
 
 # Stage encodings: ("D", c) drift, ("K", c) kick, ("F",) force eval.
@@ -56,46 +57,52 @@ FORCE_EVALS = {name: sum(1 for s in tab if s[0] == "F")
                for name, tab in INTEGRATORS.items()}
 
 
-def _as_dtype(x: float, dtype: torch.dtype) -> float:
-    """A binary64 coefficient rounded to the state dtype (returned as the
-    Python float of that exact value, so the multiply sees no second
-    rounding and no device copy)."""
-    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
-
-
 def make_step(
-    force_fn: Callable[[torch.Tensor], torch.Tensor],
+    force_fn: Callable[..., torch.Tensor],
     table: Sequence[Stage] | str,
     dt: float,
     scale: float = 1.0,
-) -> Callable[[ParticleState], ParticleState]:
+) -> Callable[..., ParticleState]:
     """Build a single-step function state -> state from a stage table.
 
     `force_fn`: pos [N,D] -> acc [N,D] (already includes the trap term).
-    The step allocates new tensors; it never updates its input in place.
+    Extra arguments of the step, ``step(state, *args)``, are handed on to
+    every ``force_fn(pos, *args)`` (the frozen tree of a window).  The
+    stage coefficients are rounded to the state dtype once, when the step
+    first sees that dtype.  The step allocates new tensors; it never
+    updates its input in place.
     """
     if isinstance(table, str):
         table = INTEGRATORS[table]
     dt = float(dt)
     scale = float(scale)
+    coefs = {}      # dtype -> the table's stages with rounded coefficients
 
-    def step(state: ParticleState) -> ParticleState:
+    def stages(dtype):
+        if dtype not in coefs:
+            coefs[dtype] = tuple(
+                (s[0], round_to_dtype(dt * s[1] if s[0] == "D"
+                                      else dt * scale * s[1], dtype))
+                if s[0] in "DK" else s for s in table)
+        return coefs[dtype]
+
+    def step(state: ParticleState, *args) -> ParticleState:
         pos, vel, acc = state
-        dtype = pos.dtype
-        for stage in table:
+        for stage in stages(pos.dtype):
             if stage[0] == "D":
-                pos = pos + vel * _as_dtype(dt * stage[1], dtype)
+                pos = pos + vel * stage[1]
             elif stage[0] == "K":
-                vel = vel + acc * _as_dtype(dt * scale * stage[1], dtype)
+                vel = vel + acc * stage[1]
             else:  # "F"
-                acc = force_fn(pos)
+                acc = force_fn(pos, *args)
         return ParticleState(pos, vel, acc)
 
     return step
 
 
 def nsteps(step_fn, state: ParticleState, n: int) -> ParticleState:
-    """Run `n` steps (the twin's lax.scan, as a Python loop)."""
+    """Run `n` steps eagerly (the twin's lax.scan, as a Python loop; the
+    Simulator replays a captured step instead, ``utils/graphs.py``)."""
     for _ in range(n):
         state = step_fn(state)
     return state

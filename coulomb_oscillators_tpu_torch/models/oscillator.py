@@ -4,7 +4,9 @@ Twin of ``coulomb_oscillators_tpu/models/oscillator.py`` (reference:
 Simulation/main3.cu:47-69 — `coulombOscillator*` composes an
 interchangeable Coulomb engine with the external harmonic trap).  An
 engine is a function pos -> acc; the oscillator force adds the trap term.
-Everything runs eagerly (the twin jits the step).
+These functions run eagerly; the Simulator captures its step as a CUDA
+graph on the card (``simulate.py``, ``utils/graphs.py``), where the twin jits
+it.
 """
 
 from __future__ import annotations

@@ -32,17 +32,21 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import sys
 
 import torch
 
 from coulomb_oscillators_tpu_torch import native
+from coulomb_oscillators_tpu_torch.utils import graphs
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "direct.cu")
 
 # kernel launches made through :func:`launch` (which :func:`direct`
-# calls); counted nowhere else
+# calls); counted nowhere else (a CUDA graph's replay
+# adds what its captured step launched, utils/graphs.py)
 launches = 0
+graphs.register_counter(sys.modules[__name__], "launches")
 
 # a split's source range is a multiple of this
 SPLIT_UNIT = 32

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from coulomb_oscillators_tpu_torch import native
-from coulomb_oscillators_tpu_torch.config import SimConfig
+from coulomb_oscillators_tpu_torch.config import SimConfig, round_to_dtype
 from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
 from coulomb_oscillators_tpu_torch.ops.multipole import operators as mop
 from coulomb_oscillators_tpu_torch.ops.multipole.tables import build_tables
@@ -453,6 +453,10 @@ class KdFmmEngine:
         self.st = _static_structure(n, self.L,
                                     pad_to=max(128 >> self.sub_depth, 8))
         self.caps = {"p2p": 8192, "m2l": M2L_CAP_QUANTUM}
+        # entries the plain near-field sum covers on a CPU tensor: the pair
+        # lists' longest valid prefix with 1.25 headroom at a quantum of
+        # 256, grow-only as the caps are (see _stage_p2p)
+        self.near_cap = 0
         self.stale_margin_abs = 0.0
         self._dev = {}
 
@@ -665,6 +669,9 @@ class KdFmmEngine:
                 grown = -(-(self.caps[name] * 5 // 4) // q) * q
                 self.caps[name] = max(_round_cap(klen, q, hr),
                                       grown if self.caps[name] else 0)
+        if p2p.shape[0] > self.near_cap:
+            self.near_cap = min(self.caps["p2p"],
+                                -(-int(p2p.shape[0] * 1.25) // 256) * 256)
         G = self.G_sub
         cap = self.caps["m2l"]
         m2l_t = np.full(cap, Mheap, dtype=np.int32)
@@ -834,8 +841,8 @@ class KdFmmEngine:
 
     def _kappa(self, dtype) -> float:
         """kappa rounded to the working dtype (the reference's
-        dtype.type(kappa))."""
-        return torch.tensor(self.config.kappa(self.n), dtype=dtype).item()
+        dtype.type(kappa)), once per value and dtype."""
+        return round_to_dtype(self.config.kappa(self.n), dtype)
 
     # ---- pipeline stages (each callable alone, for profiling) ----
 
@@ -1027,11 +1034,29 @@ class KdFmmEngine:
 
     def _stage_p2p(self, ppad: torch.Tensor, fs: FmmState) -> torch.Tensor:
         """Near-field pass on padded blocks: [G, C, dim], unscaled.  In dim
-        3 a CUDA tensor runs the Hopper kernel and a CPU tensor its plain
-        version; dim 2 runs the plain version on every device (the kernel
-        is dim 3 only, as the reference's; see the module docstring)."""
+        3 a CUDA tensor runs the Hopper kernel on the CSR.  Otherwise (dim
+        2 on every device: the kernel is dim 3 only, as the reference's; see
+        the module docstring; or a CPU tensor) the plain sum runs over the
+        padded pair list (``p2p_tgt``, ``p2p_src``), which holds the CSR's
+        valid entries in order and pad entries with the dummy target and a
+        zero lane mask after them.  On a CUDA tensor it runs the list's
+        whole capacity, so its shapes never depend on the data and nothing
+        waits for the device.  On a CPU tensor (no device to wait for, no
+        graph) it runs the grow-only prefix ``near_cap``, or the state's own
+        valid count where that is longer (a state built elsewhere): the
+        capacity's 8192-entry floor would multiply the work at small N.
+        The plain sum reads the pair list, not the CSR: a caller that
+        shards the CSR's rows calls ``p2p_cuda`` on it
+        (``parallel/fmm_shard.py``)."""
         pblk = ppad.reshape(self.G_blk, self.C_blk, self.dim).contiguous()
-        fn = p2p_cuda.p2p if self.dim == 3 else p2p_cuda.p2p_plain
-        out = fn(pblk, fs.p2p_row_ptr, fs.p2p_col2d, self.nsub,
-                 self.config.eps2)
+        if self.dim == 3 and pblk.device.type != "cpu":
+            out = p2p_cuda.p2p(pblk, fs.p2p_row_ptr, fs.p2p_col2d, self.nsub,
+                               self.config.eps2)
+        else:
+            tgt, src = fs.p2p_tgt, fs.p2p_src
+            if pblk.device.type == "cpu":
+                k = max(self.near_cap, int(fs.p2p_row_ptr.numpy()[-1]))
+                tgt, src = tgt[:k], src[:k]
+            out = p2p_cuda.p2p_plain_entries(pblk, tgt, src, self.nsub,
+                                             self.config.eps2)
         return out.reshape(self.G_sub, self.st.C, self.dim)

@@ -39,7 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from coulomb_oscillators_tpu_torch.config import SimConfig
+from coulomb_oscillators_tpu_torch.config import SimConfig, round_to_dtype
 from coulomb_oscillators_tpu_torch.ops.multipole import operators as mop
 from coulomb_oscillators_tpu_torch.ops.multipole import packing as pk
 from coulomb_oscillators_tpu_torch.ops.multipole.tables import build_tables
@@ -263,8 +263,8 @@ class _NearField:
 
 def _kappa(config: SimConfig, n: int, dtype: torch.dtype) -> float:
     """kappa rounded to the working dtype, as the reference's
-    dtype.type(kappa)."""
-    return torch.tensor(config.kappa(n), dtype=dtype).item()
+    dtype.type(kappa), once per value and dtype."""
+    return round_to_dtype(config.kappa(n), dtype)
 
 
 def _unsort(acc_s: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:

@@ -23,8 +23,11 @@ launch the wrapper sorts the kernel's CUDA blocks by their partner entry
 count, heaviest first (:func:`block_order`, a few small device ops, no
 host sync), so the longest rows do not start last; the result does not
 depend on that order (:func:`launch` takes any order, or none).
-:func:`p2p_plain` also takes dim 2 (weight 1/dist2), which the kd engine
-runs on every device.
+:func:`p2p_plain` also takes dim 2 (weight 1/dist2).  The kd engine runs
+the plain sum as :func:`p2p_plain_entries` over its padded pair list (dim 2
+on every device, dim 3 on the CPU): the same entries as the CSR's valid
+prefix, padded to the list's capacity, so the sum has no data-dependent
+shape and no host wait.
 
 Pads are not masked: a pad source at FAR adds d * w(FAR) to a real target,
 as in the reference's near-field sum.  In float32 dim 3 that weight
@@ -37,18 +40,22 @@ from __future__ import annotations
 
 import ctypes
 import os
+import sys
 
 import torch
 
 from coulomb_oscillators_tpu_torch import native
+from coulomb_oscillators_tpu_torch.utils import graphs
 
 FAR = 1e18                 # pad-slot coordinate (the reference's FAR)
 PAD_X = 1e17               # x at or above it marks a pad slot (kPadX)
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "p2p.cu")
 
-# kernel launches made through :func:`p2p`; counted nowhere else
+# kernel launches made through :func:`p2p`; counted nowhere else (a CUDA graph's replay
+# adds what its captured step launched, utils/graphs.py)
 launches = 0
+graphs.register_counter(sys.modules[__name__], "launches")
 
 # pairs per chunk of the plain version (bounds its [k, C, CB] temporaries)
 _PLAIN_PAIRS = 1 << 25
@@ -190,35 +197,53 @@ def pair_counts(pos: torch.Tensor, row_ptr: torch.Tensor,
 
 def p2p_plain(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
               nsub: int, eps2: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device, in dims 2 and 3.
+    """Plain PyTorch version of the kernel, on any device, in dims 2 and 3:
+    :func:`p2p_plain_entries` over the valid prefix of every sub-leaf's
+    partner row, as flat entries in row-major order (entries past a row's
+    degree are never read by either version).  That prefix's length
+    depends on the data (one ``nonzero``, which waits for the device); the
+    kd engine passes its padded pair list, which holds the same entries in
+    the same order, to :func:`p2p_plain_entries` instead."""
+    deg = (row_ptr[1:] - row_ptr[:-1]).clamp(max=col2d.shape[1])
+    cols = torch.arange(col2d.shape[1], device=col2d.device)
+    rows, ks = torch.nonzero(cols[None, :] < deg[:, None], as_tuple=True)
+    return p2p_plain_entries(pos, rows, col2d[rows, ks], nsub, eps2)
 
-    Walks the valid prefix of every sub-leaf's partner row (entries past
-    the degree are never read by either version), gathers target sub-leaf
-    and source block tiles in chunks, and evaluates the same pair weight
-    r = rsqrt(dist2), w = r^3 (dim 3) or r^2 (dim 2) times the lane-group
-    mask.  Source block id Gb reads an all-FAR sentinel block (zero weight
-    in float32 dim 3).  Per-target sums accumulate with a sorted
-    index_add_."""
+
+def p2p_plain_entries(pos: torch.Tensor, tgt: torch.Tensor,
+                      packed: torch.Tensor, nsub: int,
+                      eps2: float) -> torch.Tensor:
+    """The plain near-field sum over flat entries: `tgt` [K] target
+    sub-leaf ids and `packed` [K] int32 partner entries (the module
+    contract's ``blk | bits << (32 - nsub)``).  A target id of Gb * nsub
+    (one past the last sub-leaf) with a packed entry of 0 is a pad entry:
+    its lane mask is 0, so its pair weights are exactly 0 and its sums land
+    in a dropped row.  The loop's shapes depend on K only, so a padded list
+    makes no data-dependent shape.
+
+    Gathers target sub-leaf and source block tiles in chunks and evaluates
+    the same pair weight as the kernel, r = rsqrt(dist2), w = r^3 (dim 3)
+    or r^2 (dim 2) times the lane-group mask.  Source block id Gb reads an
+    all-FAR sentinel block (zero weight in float32 dim 3).  Per-target sums
+    accumulate with a sorted index_add_."""
     Gb, CB, dim = pos.shape
     C = CB // nsub
     G = Gb * nsub
     dev = pos.device
     shift = 32 - nsub
-    deg = (row_ptr[1:] - row_ptr[:-1]).clamp(max=col2d.shape[1])
-    cols = torch.arange(col2d.shape[1], device=dev)
-    rows, ks = torch.nonzero(cols[None, :] < deg[:, None], as_tuple=True)
-    v = col2d[rows, ks].to(torch.int64) & 0xFFFFFFFF   # uint32 view
+    tgt = tgt.long()
+    v = packed.long() & 0xFFFFFFFF                        # uint32 view
     blk = v & ((1 << shift) - 1)
     bits = v >> shift
     src = torch.cat([pos, torch.full((1, CB, dim), FAR, dtype=pos.dtype,
                                      device=dev)])
-    tgt = pos.reshape(G, C, dim)
+    tiles = pos.reshape(G, C, dim)
     group = torch.arange(CB, device=dev) // C
-    out = torch.zeros(G, C, dim, dtype=pos.dtype, device=dev)
+    out = torch.zeros(G + 1, C, dim, dtype=pos.dtype, device=dev)
     k = max(1, _PLAIN_PAIRS // (C * CB))
-    for i in range(0, rows.shape[0], k):
-        ti = rows[i:i + k]
-        P_t = tgt[ti]                                     # [k, C, 3]
+    for i in range(0, tgt.shape[0], k):
+        ti = tgt[i:i + k]
+        P_t = tiles[ti.clamp(max=G - 1)]                  # [k, C, 3]
         P_s = src[blk[i:i + k]]                           # [k, CB, 3]
         mb = (bits[i:i + k, None] >> group[None, :]) & 1  # [k, CB]
         d = P_t[:, :, None, :] - P_s[:, None, :, :]       # [k, C, CB, 3]
@@ -228,4 +253,4 @@ def p2p_plain(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
         r = torch.rsqrt(dist2)
         w = (r * r * r if dim == 3 else r * r) * mb[:, None, :].to(pos.dtype)
         out.index_add_(0, ti, torch.sum(d * w[..., None], dim=2))
-    return out.reshape(Gb, CB, dim)
+    return out[:G].reshape(Gb, CB, dim)

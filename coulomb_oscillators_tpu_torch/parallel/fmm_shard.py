@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
 from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import (FAR, FmmState,
                                                           KdFmmEngine)
 from coulomb_oscillators_tpu_torch.parallel.mesh import Mesh
@@ -94,8 +95,13 @@ def make_sharded_force(eng: KdFmmEngine, mesh: Mesh, axis: str = "dp"):
         # sharded far-field entries + sum of the local heap
         local_heap = mesh.all_reduce_sum(eng._stage_m2l(mpole_heap, fs_d))
         far_pad = eng._stage_local(ppad, local_heap, fs)
-        # sharded near-field rows + sum of the block accumulator
-        near_pad = mesh.all_reduce_sum(eng._stage_p2p(ppad, fs_d))
+        # sharded near-field rows + sum of the block accumulator: the CSR
+        # (whose rows are sharded), not the engine's pair-list stage
+        pblk = ppad.reshape(eng.G_blk, eng.C_blk, eng.dim).contiguous()
+        fn = p2p_cuda.p2p if eng.dim == 3 else p2p_cuda.p2p_plain
+        near_pad = mesh.all_reduce_sum(fn(
+            pblk, fs_d.p2p_row_ptr, fs_d.p2p_col2d, eng.nsub,
+            eng.config.eps2).reshape(ppad.shape))
         acc_pad = (far_pad + near_pad) * eng._kappa(pos.dtype)
         return eng.unpad_array(acc_pad, fs)
 

@@ -3,6 +3,9 @@ identity, the production beam and the seeded oracle targets."""
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import numpy as np
 import torch
 
@@ -52,3 +55,29 @@ def oracle_targets(n: int) -> np.ndarray:
     """Indices of the seeded oracle targets (2048, or all below that)."""
     return np.random.default_rng(0).choice(n, min(N_TARGETS, n),
                                            replace=False)
+
+
+@contextlib.contextmanager
+def graphs_env(on):
+    """``CO_CUDA_GRAPHS`` for the Simulators built inside: True or False
+    forces the card's CUDA graphs on or off, None leaves the environment's
+    choice (the Simulator reads the knob when it is built)."""
+    saved = os.environ.get("CO_CUDA_GRAPHS")
+    try:
+        if on is not None:
+            os.environ["CO_CUDA_GRAPHS"] = "1" if on else "0"
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("CO_CUDA_GRAPHS", None)
+        else:
+            os.environ["CO_CUDA_GRAPHS"] = saved
+
+
+def graph_info(sim) -> dict:
+    """A Simulator's CUDA-graph facts: whether its steps replay a graph,
+    and its captures and their seconds."""
+    g = sim.graph
+    return {"graphs": g is not None, "captures": g.captures if g else 0,
+            "capture_s": g.capture_seconds if g else 0.0}
+

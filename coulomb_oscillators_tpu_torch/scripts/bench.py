@@ -23,13 +23,23 @@ Order of work, headline first:
      default 2400 s; skipped by ``--quick``): candidates near the tuned
      point are probed, and one that leaves window headroom and scores
      better than 0.95 x the tuned score gets a production timing and its
-     own ladder.
+     own ladder;
+  5. (skipped by ``--quick``) the winner timed again at both cadences with
+     its steps run eagerly (``CO_CUDA_GRAPHS=0``).
+
+The Simulator runs its steps as CUDA graphs on the card unless
+``CO_CUDA_GRAPHS=0`` is set: the headline, its window ladder (the
+certification) and the default cadence run so.
 
 The line's fields are the root bench's, without its ratio to an earlier
 run, plus ``extra.default_cadence``, ``extra.rebuild_s``,
 ``extra.rebuild_breakdown_s``, ``extra.boundary_wait_s``,
 ``extra.certified`` and ``extra.device`` (the card's nvidia-smi name and
-power limit, the torch and CUDA versions).  A headline whose fresh-tree
+power limit, the torch and CUDA versions), ``graphs`` (whether the
+headline's steps ran as CUDA graphs) with ``extra.captures``,
+``extra.capture_s``, ``extra.peak_bytes`` and ``extra.peak_reserved_bytes``
+(allocated and reserved device memory over the timed windows), and in full mode ``extra.eager`` (both cadences timed
+eagerly).  A headline whose fresh-tree
 error or window error is above the bound says ``"certified": false`` and
 why.  No file is read or written unless ``--tuned``, ``--save-tuned`` or
 ``--oracle-cache`` name one.
@@ -88,6 +98,11 @@ REFINE = [
 WINDOW_HEADROOM = 1.5
 SCORE_GATE = 0.95
 WINDOW_STEPS = 16          # steps per timed window
+# a timing block's CUDA-graph facts (scripts/_common.py:graph_info) and
+# its peaks of allocated and of reserved device memory (a graph's pool is
+# reserved; its replays allocate nothing)
+GRAPH_KEYS = ("graphs", "captures", "capture_s", "peak_bytes",
+              "peak_reserved_bytes")
 
 
 def _budget_s() -> float:
@@ -161,9 +176,12 @@ def _same(a, b) -> bool:
 
 
 def _emit(best, n, integrator, probes, finals, default_cadence=None,
-          device=None, note="", counters=None) -> dict:
+          device=None, note="", counters=None, eager=None) -> dict:
     """The bench's one JSON object from the winner's timing block `best`
-    (p, r, boost, err, cadence, times, windows, ladders, margin)."""
+    (p, r, boost, err, cadence, times, windows, ladders, margin).
+    ``graphs`` says whether the headline's steps ran as CUDA graphs;
+    `eager`, in full mode, holds the same configuration timed eagerly at
+    both cadences."""
     med = best["median"]
     cad = best["cadence"]
     # interaction rates: counts per force evaluation from the winner's
@@ -217,12 +235,15 @@ def _emit(best, n, integrator, probes, finals, default_cadence=None,
         else {},
         "boundary_wait_s": [w["boundary_wait_s"] for w in wins],
         "default_cadence": default_cadence,
+        "eager": eager,
         "device": device,
         "probes": probes, "final_candidates": finals, "note": note,
     }
+    extra.update({k: best.get(k) for k in GRAPH_KEYS if k != "graphs"})
     extra.update(counters or {})
     return {"metric": "particle_steps_per_s", "value": n / med,
-            "unit": "psteps/s", "extra": extra}
+            "unit": "psteps/s", "graphs": bool(best.get("graphs")),
+            "extra": extra}
 
 
 class Bench:
@@ -429,7 +450,7 @@ class Bench:
 
     # ---- production timing of one config at one cadence ----
     def final_timing(self, p, r, boost, cadence, windows=7,
-                     early_stop_s=0.0, ladder_every=0) -> dict:
+                     early_stop_s=0.0, ladder_every=0, graphs=None) -> dict:
         """The Simulator at `cadence`: two 2-step runs and three windows
         of 2 * tree_steps steps as warm-up (enough boundaries for the list
         caps to settle), then `windows` timed windows of 16 steps, each
@@ -437,7 +458,10 @@ class Bench:
         candidate whose best window after two is slower than that stops.
         With `ladder_every` > 0 the window ladder follows on the same
         run, over `resort_every` consecutive windows: the lists of one
-        full re-sort serve that many."""
+        full re-sort serve that many.  `graphs` True or False runs the
+        steps as CUDA graphs or eagerly (None: as ``CO_CUDA_GRAPHS``
+        says); the block records which, the captures and the peak of
+        allocated device memory over the timed windows."""
         from coulomb_oscillators_tpu_torch.models.integrators import (
             FORCE_EVALS)
         from coulomb_oscillators_tpu_torch.simulate import Simulator
@@ -452,7 +476,7 @@ class Bench:
         per_step = FORCE_EVALS[config.integrator]
         out = {"p": p, "r": r, "boost": boost, "cadence": dict(cadence),
                "times": [], "windows": [], "ladders": []}
-        with SP.builder_env(builder):
+        with SP.builder_env(builder), C.graphs_env(graphs):
             sim = Simulator(config, self.n, engine="fmm3_kd")
             try:
                 state = sim.init_acc(particle_state_from_numpy(
@@ -464,6 +488,8 @@ class Bench:
                     C.sync(self.device)
                 self.force_evals += 1 + (4 + 6 * max(ts, 1)) * per_step
                 eng = sim._fmm
+                if self.device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(self.device)
                 for w in range(windows):
                     w0 = sim.rebuild_wait_total
                     t0 = time.perf_counter()
@@ -502,6 +528,12 @@ class Bench:
                 out["margin"] = np.asarray(eng.stale_margin_abs).tolist()
                 out["rebuilds"] = dict(sim.rebuilds)
                 out["finite"] = bool(torch.isfinite(sim._padded.vel).all())
+                out.update(C.graph_info(sim))
+                if self.device.type == "cuda":
+                    out["peak_bytes"] = torch.cuda.max_memory_allocated(
+                        self.device)
+                    out["peak_reserved_bytes"] = \
+                        torch.cuda.max_memory_reserved(self.device)
             finally:
                 sim.close()
         out["median"] = statistics.median(out["times"])
@@ -530,7 +562,8 @@ def _cadence_block(t: dict, n: int) -> dict:
             "rebuild_s": [w["rebuild_s"] for w in wins],
             "rebuild_breakdown_s": wins[-1]["rebuild_breakdown_s"],
             "boundary_wait_s": [w["boundary_wait_s"] for w in wins],
-            "stale_margin_auto": t["margin"], "rebuilds": t["rebuilds"]}
+            "stale_margin_auto": t["margin"], "rebuilds": t["rebuilds"],
+            **{k: t.get(k) for k in GRAPH_KEYS}}
 
 
 def run(n=N_HEAD, device=None, quick=False, tuned_path=None,
@@ -617,6 +650,15 @@ def run(n=N_HEAD, device=None, quick=False, tuned_path=None,
             best = t
     if dflt_of is not best:
         dflt = at_default(best)
+    # full mode: the winner at both cadences with its steps run eagerly
+    eager = None
+    if not quick:
+        eager = {}
+        for key, cad in (("tuned", best["cadence"]),
+                         ("default", dict(DEFAULT_CADENCE, builder="host"))):
+            t = bench.final_timing(best["p"], best["r"], best["boost"], cad,
+                                   windows=windows, graphs=False)
+            eager[key] = dict(_cadence_block(t, n), finite=t["finite"])
 
     out = _emit(
         best, n, bench.base.integrator, probes, finals,
@@ -627,7 +669,9 @@ def run(n=N_HEAD, device=None, quick=False, tuned_path=None,
              + (", quick" if quick else ""),
         counters={"force_evals": bench.force_evals,
                   "p2p_kernel_launches": p2p_cuda.launches - launches0,
-                  "finite": bool(best["finite"] and dflt["finite"])})
+                  "finite": bool(best["finite"] and dflt["finite"] and all(
+                      e["finite"] for e in (eager or {}).values()))},
+        eager=eager)
     if save_tuned:
         with open(save_tuned, "w") as f:
             json.dump({"p": best["p"], "r": best["r"],

@@ -24,9 +24,10 @@ nvidia-smi's SM clock and power draw are sampled while a case is timed.
 ``--sass`` writes ``cuobjdump -sass`` of each build into DIR and reports,
 for each kernel function, the instructions of its pair loop over the
 pairs it evaluates (one special-function op each).  ``--step`` times the
-CLI's direct step at N = 30001 (Simulator("direct"), leapfrog) with this
-kernel and each baseline: ms a step on the host clock, and the device's
-busy share from ``torch.profiler``.  Prints one JSON row per case and the
+CLI's direct step at N = 30001 (Simulator("direct"), leapfrog), as CUDA
+graphs and eagerly, with this kernel and each baseline: ms a step on the
+host clock, the kernels' ms and the device's busy share from
+``torch.profiler``, the captures and the peak memory.  Prints one JSON row per case and the
 card's name and power limit; runs on a CUDA card only.
 """
 
@@ -299,14 +300,53 @@ def kahan_rows(dev, bases=()):
     return rows
 
 
-def step_row(dev, bases=(), n=30001, steps=200):
-    """The CLI's direct step at `n` (3D beam, leapfrog, dt = 5e-4) with
-    this kernel and each baseline swapped in for ``ops.direct.direct``:
-    ms a step (host clock, synchronised) and the device's busy share over
-    a profiled run of the same length."""
-    from coulomb_oscillators_tpu_torch.ops import direct as D
+def _step_run(dev, cfg, n, ph, vel, steps, graphs):
+    """One Simulator("direct") run on the CLI's beam: 20 warm-up steps,
+    then `steps` timed (host clock, synchronised) and `steps` profiled.
+    Returns (ms a step, kernel ms a step, busy share, captures, capture
+    seconds, peak allocated bytes from the warm-up on, final positions)."""
+    from coulomb_oscillators_tpu_torch.scripts import _common as C
     from coulomb_oscillators_tpu_torch.simulate import Simulator
     from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
+    with C.graphs_env(graphs):
+        sim = Simulator(cfg, n, "direct")
+    try:
+        st = sim.init_acc(particle_state_from_numpy(ph, vel, device=dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        st = sim.run(st, 20)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st = sim.run(st, steps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) / steps * 1e3
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            st = sim.run(st, steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        dev_us = sum(_self_us(e) for e in _device_events(prof))
+        info = C.graph_info(sim)
+    finally:
+        sim.close()
+    return dict(ms_per_step=ms, device_ms_per_step=dev_us / 1e3 / steps,
+                busy_share=dev_us / 1e6 / wall, captures=info["captures"],
+                capture_s=info["capture_s"],
+                peak_bytes=torch.cuda.max_memory_allocated(dev)), st.pos
+
+
+def step_row(dev, bases=(), n=30001, steps=200):
+    """The CLI's direct step at `n` (3D beam, leapfrog, dt = 5e-4) with
+    this kernel and each baseline swapped in for ``ops.direct.direct``,
+    each with its steps run as CUDA graphs and eagerly
+    (``CO_CUDA_GRAPHS=0``), in turns (graph, eager, eager, graph): ms a
+    step (host clock, synchronised), the kernels' ms a step and the
+    device's busy share over a profiled run of the same length, the
+    captures, and the peak of allocated memory; a mode's numbers are the
+    mean of its two runs.  The graph and eager positions must be bitwise
+    equal."""
+    from coulomb_oscillators_tpu_torch.ops import direct as D
     cfg, ph = beam(n, 3)
     vel = np.zeros_like(ph)
     row = dict(case="cli_direct_step", dim=3, n=n, steps=steps)
@@ -314,30 +354,22 @@ def step_row(dev, bases=(), n=30001, steps=200):
     for name, fn in [("kernel", kernel)] + list(bases):
         D.direct = fn if name == "kernel" else (
             lambda pos, eps2, kappa, fn=fn: fn(pos, eps2, kappa))
+        runs = {True: [], False: []}
         try:
-            sim = Simulator(cfg, n, "direct")
-            st = sim.init_acc(particle_state_from_numpy(ph, vel, device=dev))
-            st = sim.run(st, 20)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            st = sim.run(st, steps)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t) / steps * 1e3
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                t = time.perf_counter()
-                st = sim.run(st, steps)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t
-            dev_us = sum(_self_us(e) for e in _device_events(prof))
-            sim.close()
+            for graphs in (True, False, False, True):
+                runs[graphs].append(_step_run(dev, cfg, n, ph, vel, steps,
+                                              graphs))
         finally:
             D.direct = kernel
+        if not torch.equal(runs[True][0][1], runs[False][0][1]):
+            raise RuntimeError(f"{name}: graph and eager steps differ")
         pre = "" if name == "kernel" else f"{name}_"
-        row[f"{pre}ms_per_step"] = ms
-        row[f"{pre}device_ms_per_step"] = dev_us / 1e3 / steps
-        row[f"{pre}busy_share"] = dev_us / 1e6 / wall
+        for graphs, tag in ((True, ""), (False, "eager_")):
+            recs = [r for r, _ in runs[graphs]]
+            for k in recs[0]:
+                row[f"{pre}{tag}{k}"] = float(np.mean([r[k] for r in recs]))
+            row[f"{pre}{tag}ms_per_step_runs"] = [r["ms_per_step"]
+                                                 for r in recs]
     return row
 
 

@@ -26,8 +26,9 @@ Usage:
   fmm3_traceless, appel at N on the uniform box), `trace` (3 padded force
   calls under the profiler, the device-kernel histogram per call),
   `prodtrace` (one production window of the Simulator under the profiler:
-  device ms/step against wall ms/step; cadence via env CO_TS / CO_RESORT /
-  CO_PIPE, default 16/2/2).
+  device ms/step against wall ms/step, with the steps as CUDA graphs and
+  then eagerly (the record's ``eager``); cadence via env CO_TS / CO_RESORT
+  / CO_PIPE, default 16/2/2).
 """
 
 from __future__ import annotations
@@ -247,18 +248,23 @@ def trace_force(n: int, p: int, r: float, device, logdir: str,
 
 
 def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
-               resort: int = 2, pipeline: int = 2) -> dict:
+               resort: int = 2, pipeline: int = 2, graphs=None) -> dict:
     """One production reuse window of the Simulator under the profiler:
     device ms/step (the sum of the kernels' durations) against the wall
     ms/step of the untraced window before it, and the kernels by name per
-    step."""
+    step.  `graphs` True or False runs the steps as CUDA graphs or eagerly
+    (None: as ``CO_CUDA_GRAPHS`` says); the record says which, with the
+    captures, their seconds and the peak of allocated device memory over
+    the two windows."""
     from coulomb_oscillators_tpu_torch.scripts.stale_margin_probe import (
         cadence_config)
     from coulomb_oscillators_tpu_torch.simulate import Simulator
     from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
     cfg = cadence_config(p, r, ts, resort, pipeline)
     pos_h, vel_h = C.beam(n, cfg)
-    sim = Simulator(cfg, n, engine="fmm3_kd")
+    with C.graphs_env(graphs):
+        sim = Simulator(cfg, n, engine="fmm3_kd")
+    cuda = torch.device(device).type == "cuda"
     try:
         st = sim.init_acc(particle_state_from_numpy(pos_h, vel_h,
                                                     device=device))
@@ -269,6 +275,8 @@ def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
             C.sync(device)
         # wall time from an untraced window (the profiler slows the
         # host's launches), device time from the traced one after it
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         sim.advance_padded(ts)
         C.sync(device)
@@ -280,6 +288,8 @@ def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
             wall_traced = time.perf_counter() - t0
         margin = np.asarray(sim._fmm.stale_margin_abs).tolist()
         rebuilds = dict(sim.rebuilds)
+        info = C.graph_info(sim)
+        peak = torch.cuda.max_memory_allocated(device) if cuda else None
     finally:
         sim.close()
     hist = prof.op_histogram(logdir, top=None)
@@ -294,7 +304,7 @@ def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
             "traced_wall_ms_per_step": wall_traced / ts * 1e3,
             "device_ms_per_step": tot / ts,
             "device_busy_share": tot / 1e3 / wall,
-            "rebuilds": rebuilds,
+            "rebuilds": rebuilds, **info, "peak_bytes": peak,
             "top_ops_ms_per_step": {k: v / ts for k, v in top.items()}}
 
 
@@ -338,14 +348,23 @@ def main(argv=None) -> int:
             out = trace_force(n, p, r, device, logdir)
             print_histogram(out, "call", "kernels_ms_per_call")
         elif mode == "prodtrace":
-            out = prod_trace(n, p, r, device, logdir,
-                             int(os.environ.get("CO_TS", "16")),
-                             int(os.environ.get("CO_RESORT", "2")),
-                             int(os.environ.get("CO_PIPE", "2")))
-            print(f"production window: wall {out['wall_ms_per_step']:.2f} "
-                  f"ms/step untraced ({out['traced_wall_ms_per_step']:.2f} "
-                  f"traced), device {out['device_ms_per_step']:.2f} ms/step")
-            print_histogram(out, "step", "top_ops_ms_per_step")
+            # the steps as CUDA graphs (a user's run), then eagerly
+            cad = (int(os.environ.get("CO_TS", "16")),
+                   int(os.environ.get("CO_RESORT", "2")),
+                   int(os.environ.get("CO_PIPE", "2")))
+            recs = [prod_trace(n, p, r, device,
+                               os.path.join(logdir, tag), *cad, graphs=g)
+                    for tag, g in (("graph", True), ("eager", False))]
+            out = dict(recs[0], eager=recs[1])
+            for rec in recs:
+                print(f"production window (graphs={rec['graphs']}, "
+                      f"captures {rec['captures']} in "
+                      f"{rec['capture_s']:.2f} s): wall "
+                      f"{rec['wall_ms_per_step']:.2f} ms/step untraced "
+                      f"({rec['traced_wall_ms_per_step']:.2f} traced), "
+                      f"device {rec['device_ms_per_step']:.2f} ms/step, "
+                      f"busy {100 * rec['device_busy_share']:.1f}%")
+                print_histogram(rec, "step", "top_ops_ms_per_step")
         elif mode == "all":
             # ladder 2's fmm2_kd (p=4, r=2), the rest at (p, r)
             out = {"records": [

@@ -5,17 +5,26 @@ Twin of ``coulomb_oscillators_tpu/simulate.py`` (reference sim loop
 main3.cu:832-874).  Three paths:
 
   * the plain engines ("direct", "direct_ref"): the integrator steps the
-    oscillator force in a Python loop (the twin's jitted fori_loop);
+    oscillator force;
   * the uniform-grid engines ("fmm3", "fmm3_traceless", "fmm2",
     "fmm2_traceless", "appel"): a synchronous rebuild every `tree_steps`
     iterations, then `k` steps on the original-order state;
   * the kd engines (tree rebuilt every `tree_steps` iterations,
     fmm_cart3_kdtree.cuh:1619-1642): between rebuilds the state lives as
-    padded [G, C, dim] leaf blocks and the integrator runs as a Python loop
-    of `k` steps; at window boundaries the rebuild pipeline adopts a tree
-    built in a background thread from an earlier boundary's positions —
-    by the native host builder, or with ``tree_async_build="device"`` by
-    the device builders.
+    padded [G, C, dim] leaf blocks and the integrator runs `k` steps; at
+    window boundaries the rebuild pipeline adopts a tree built in a
+    background thread from an earlier boundary's positions — by the native
+    host builder, or with ``tree_async_build="device"`` by the device
+    builders.
+
+Each path's `k` steps are one step body run `k` times.  On CUDA tensors the
+body is captured once as a CUDA graph and replayed `k` times
+(``utils/graphs.py``), the twin of the reference's jitted ``fori_loop``; the
+``CO_CUDA_GRAPHS`` environment variable set to 0 when the Simulator is built
+runs the same body eagerly instead (the twin of ``JAX_DISABLE_JIT``).  CPU
+tensors always run it eagerly: the CPU has no graphs.  What leaves a graph
+(the state a window hands back, the rebuild jobs' inputs, host copies) is a
+clone that later replays never overwrite.
 
 Mesh mode (``Simulator(..., mesh=parallel.mesh.make_mesh(...))``, kd
 engines only) runs the padded window loop particle-sharded
@@ -28,7 +37,8 @@ every rank runs the same deterministic rebuild on the gathered positions,
 so all ranks adopt identical lists without a broadcast, and the background
 rebuild thread makes no collective call.  The sharded window evaluates the
 force against the frozen tree without the geometry refresh, as the
-reference's mesh mode does.
+reference's mesh mode does.  Mesh mode always runs eagerly: its collectives
+are host calls.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from coulomb_oscillators_tpu_torch.config import SimConfig
 from coulomb_oscillators_tpu_torch.models import integrators as I
 from coulomb_oscillators_tpu_torch.ops.elastic import add_elastic
 from coulomb_oscillators_tpu_torch.state import ParticleState
+from coulomb_oscillators_tpu_torch.utils.graphs import StepGraph
 
 def auto_stale_margin(vel, config: SimConfig) -> np.ndarray:
     """Per-axis traversal-time MAC slack for frozen pair lists:
@@ -105,6 +116,10 @@ class Simulator:
         self.n = n
         self.engine_name = engine
         self.omega0_sq = config.omega0_sq()
+        # CUDA graphs for the window steps on CUDA tensors (utils/graphs.py);
+        # CO_CUDA_GRAPHS=0 runs the same step eagerly
+        self.use_graphs = os.environ.get("CO_CUDA_GRAPHS", "1") != "0"
+        self.graph = None         # the StepGraph, made at the first window
         self._fmm = None
         self._fstate = None
         self._padded = None       # kd engine: ParticleState of [G, C, dim]
@@ -116,8 +131,8 @@ class Simulator:
             from coulomb_oscillators_tpu_torch.models.oscillator import (
                 make_oscillator_force)
             self._plain_force = make_oscillator_force(config, n, engine)
-            self._plain_step = I.make_step(self._plain_force,
-                                           config.integrator, config.dt)
+            self._step = I.make_step(lambda p, _: self._plain_force(p),
+                                     config.integrator, config.dt)
             return
         from coulomb_oscillators_tpu_torch.ops import fmm as fmm_mod
         self._fmm = fmm_mod.make_engine_object(config, n, engine)
@@ -145,57 +160,48 @@ class Simulator:
             self._plists = self._phops = None
             self._scan_step = lambda pstate, fstate, k: scan(
                 pstate, fstate, self._plists, self._phops, k)
-        elif self._use_padded:
-            self._scan_step = self._make_fmm_scan_padded()
-        else:
-            self._scan_step = self._make_fmm_scan()
+            return
+        self._step = I.make_step(self._padded_force if self._use_padded
+                                 else self._grid_force,
+                                 config.integrator, config.dt)
+        self._scan_step = self._window
 
     # ------------------------------------------------------------------ #
-    def _make_fmm_scan(self):
-        """Window loop on the original-order state (uniform-grid engines):
-        `k` steps against the frozen tree."""
-        eng = self._fmm
-        cfg = self.config
-        omega0_sq = self.omega0_sq
+    def _grid_force(self, pos, fstate):
+        """The uniform-grid engines' force with the trap term, on the
+        original-order state against the frozen tree."""
+        return add_elastic(pos, self._fmm.force(pos, fstate), self.omega0_sq)
 
-        def scan_k(state, fstate, k):
-            step = I.make_step(
-                lambda p: add_elastic(p, eng.force(p, fstate), omega0_sq),
-                cfg.integrator, cfg.dt)
-            for _ in range(k):
-                state = step(state)
+    def _padded_force(self, ppad, fstate):
+        """The kd engines' force with the trap term on padded [G, C, dim]
+        leaf blocks.  With config.geom_refresh (default, and only when
+        lists are reused) every force eval first recomputes expansion
+        geometry from the live positions; lists stay frozen."""
+        eng = self._fmm
+        if self.config.geom_refresh and self.config.tree_steps > 1:
+            fstate = eng.geom_refresh(ppad, fstate)
+        acc = add_elastic(ppad, eng.force_padded(ppad, fstate),
+                          self.omega0_sq)
+        # pad slots park at FAR: their trap term is huge — zero it so pad
+        # velocities stay 0 and pad positions stay put
+        return torch.where(eng.mask3(ppad.device)[..., None], acc, 0.0)
+
+    def _window(self, state, frozen, k: int):
+        """`k` steps of the path's step body against the frozen tree (``()``
+        for a plain engine): replays of its CUDA graph on a CUDA tensor
+        unless CO_CUDA_GRAPHS=0 was set, else eagerly.  The grid engines'
+        cell capacity is baked into the step, so it keys the capture."""
+        if k <= 0:
             return state
-
-        return scan_k
-
-    # ------------------------------------------------------------------ #
-    def _make_fmm_scan_padded(self):
-        """Window loop on padded [G, C, dim] leaf blocks.  With
-        config.geom_refresh (default, and only when lists are reused) every
-        force eval first recomputes expansion geometry from the live
-        positions; lists stay frozen."""
-        eng = self._fmm
-        cfg = self.config
-        omega0_sq = self.omega0_sq
-        geo = cfg.geom_refresh and cfg.tree_steps > 1
-
-        def force(ppad, fstate):
-            if geo:
-                fstate = eng.geom_refresh(ppad, fstate)
-            acc = eng.force_padded(ppad, fstate)
-            acc = add_elastic(ppad, acc, omega0_sq)
-            # pad slots park at FAR: their trap term is huge — zero it so
-            # pad velocities stay 0 and pad positions stay put
-            return torch.where(eng.mask3(ppad.device)[..., None], acc, 0.0)
-
-        def scan_k(pstate, fstate, k):
-            step = I.make_step(lambda p: force(p, fstate),
-                               cfg.integrator, cfg.dt)
-            for _ in range(k):
-                pstate = step(pstate)
-            return pstate
-
-        return scan_k
+        if state.pos.device.type == "cuda" and self.use_graphs:
+            if self.graph is None:
+                self.graph = StepGraph(self._step)
+            static = (() if self._fmm is None or self._use_padded
+                      else (self._fmm.cell_cap,))
+            return self.graph.run(state, frozen, k, static)
+        for _ in range(k):
+            state = self._step(state, frozen)
+        return state
 
     def _pad_state(self, state: ParticleState) -> ParticleState:
         """The full original-order state as padded blocks (mesh mode: this
@@ -263,7 +269,7 @@ class Simulator:
     def run(self, state: ParticleState, steps: int) -> ParticleState:
         """Advance `steps` iterations, rebuilding the tree as configured."""
         if self._fmm is None:
-            return I.nsteps(self._plain_step, state, steps)
+            return self._window(state, (), steps)
         if not self._use_padded:
             return self._run_unpadded(state, steps)
         # a state we did not hand out (or a cold start) enters padded form
@@ -486,8 +492,10 @@ class Simulator:
         self._last_full = None
 
     def close(self) -> None:
-        """Finish queued rebuilds and stop the background thread (nothing
-        to do for a plain engine)."""
+        """Free the step's CUDA graph, finish queued rebuilds and stop the
+        background thread.  A later run captures the graph again."""
+        if self.graph is not None:
+            self.graph.release()
         if self._fmm is None:
             return
         self._drop_pending()

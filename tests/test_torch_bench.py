@@ -472,8 +472,10 @@ def test_bench_quick_prints_one_json_line_with_every_field(tmp_path,
     data = [ln for ln in lines if not ln.startswith("#")]
     assert len(data) == 1 and data[0] == lines[-1]
     out = json.loads(data[0])
-    assert set(out) == {"metric", "value", "unit", "extra"}
+    assert set(out) == {"metric", "value", "unit", "graphs", "extra"}
+    assert out["graphs"] is False            # the CPU runs its steps eagerly
     x = out["extra"]
+    assert x["captures"] == 0 and x["eager"] is None      # --quick
     assert ORIGINAL_EXTRA | PORT_EXTRA <= set(x)
     assert (x["n"], x["p"], x["r"], x["sub_boost"]) == (N, 3, 2.0, 1.5)
     assert (x["tree_steps"], x["resort_every"], x["pipeline"]) == (16, 2, 2)

@@ -36,7 +36,7 @@ torch.set_num_threads(1)
 X_STD = (0.003, 0.001, 0.01)
 N = 2048
 KNOBS = ("CO_SUB_BOOST", "CO_M2L_GROUP", "CO_STALE_MARGIN",
-         "CO_STALE_MARGIN_FACTOR", "CO_SORT_MODE")
+         "CO_STALE_MARGIN_FACTOR", "CO_SORT_MODE", "CO_CUDA_GRAPHS")
 
 
 @pytest.fixture(autouse=True)
@@ -279,3 +279,32 @@ def test_forced_level_and_leaf_target(beam, kw):
     if "L" in kw:
         assert out[2].L == kw["L"]
     _assert_same(*out, beam[0])
+
+
+@pytest.mark.parametrize("engine", ["direct", "fmm3_kd"])
+def test_co_cuda_graphs_read_at_construction(monkeypatch, beam, engine):
+    """``CO_CUDA_GRAPHS`` is read when the Simulator is built (0 turns the
+    card's graphs off, anything else or unset leaves them on) and not
+    after; CPU runs are eager either way and give the same positions."""
+    from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
+    pos, vel = beam
+    cfg = TConfig(fmm_order=3, tree_radius=2.0, tree_steps=3)
+    outs = []
+    for knob, want in ((None, True), ("0", False), ("1", True)):
+        if knob is None:
+            monkeypatch.delenv("CO_CUDA_GRAPHS", raising=False)
+        else:
+            monkeypatch.setenv("CO_CUDA_GRAPHS", knob)
+        sim = tsim.Simulator(cfg, N, engine=engine)
+        monkeypatch.setenv("CO_CUDA_GRAPHS", "1" if knob == "0" else "0")
+        try:
+            assert sim.use_graphs is want
+            st = sim.init_acc(particle_state_from_numpy(pos, vel,
+                                                        device="cpu"))
+            outs.append(sim.run(st, 4).pos)
+            assert sim.use_graphs is want
+            assert sim.graph is None           # the CPU has no graphs
+        finally:
+            sim.close()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+

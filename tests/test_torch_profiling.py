@@ -261,5 +261,8 @@ def test_profile_force_cli_modes(tmp_path, capsys, monkeypatch):
     pr = json.loads((tmp_path / "prod.json").read_text())
     assert pr["config"]["ts"] == 4 and pr["wall_ms_per_step"] > 0
     assert pr["device_ms_per_step"] == 0                 # nothing on a card
+    # the graph run and the eager one: both eager on the CPU
+    assert pr["graphs"] is False and pr["captures"] == 0
+    assert pr["eager"]["graphs"] is False and pr["eager"]["config"]["ts"] == 4
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "prod.json", "rec.json", "tr", "tr.json"]
