@@ -5,7 +5,8 @@ single-controller: one process, ``shard_map`` over a ``jax.sharding.Mesh``.
 The port is SPMD: every device has its own process (a *rank*), the ranks
 form a ``torch.distributed`` process group, and the collectives are called
 explicitly.  :class:`Mesh` is the twin of the reference's one-axis mesh: it
-holds the rank count, this process's rank and device, and the group, and
+holds the rank count and this process's rank and device, it names the
+group (the default one, never held: :func:`_rank_main` says why), and
 its three methods are the only place where the port calls
 ``torch.distributed``:
 
@@ -73,17 +74,23 @@ TIMEOUT = 120.0
 class Mesh:
     """One axis of `ndev` ranks; this process is rank `rank` on `device`."""
 
-    def __init__(self, ndev: int, rank: int, device: torch.device, group,
+    def __init__(self, ndev: int, rank: int, device: torch.device,
                  axis: str = "dp", backend: str = "gloo"):
         self.ndev = ndev
         self.rank = rank
         self.device = device
-        self.group = group
         self.axis = axis
         self.backend = backend
         # bytes of the tensors handed to each collective, and its calls
         self.bytes = collections.Counter()
         self.calls = collections.Counter()
+
+    @property
+    def group(self):
+        """The process group: the default (world) group, looked up at every
+        call and never held, so that ``destroy_process_group`` frees it
+        whatever still holds the mesh (see :func:`_rank_main`)."""
+        return dist.group.WORLD
 
     def _count(self, name: str, x: torch.Tensor) -> None:
         self.bytes[name] += x.numel() * x.element_size()
@@ -202,12 +209,25 @@ def make_mesh(n_devices: int | None = None, axis: str = "dp", device=None,
         else:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1, timeout=timeout)
-    return Mesh(ndev, rank, dev, dist.group.WORLD, axis,
-                dist.get_backend())
+    return Mesh(ndev, rank, dev, axis, dist.get_backend())
 
 
 def _rank_main(rank: int, fn: Callable, ndev: int, tmp: str, device,
                share_device: bool, timeout: float, args: tuple) -> None:
+    """One rank: join the group, run `fn`, write rank 0's result, wait for
+    every rank, destroy the group.
+
+    The group must be freed here, while the interpreter runs.  A gloo
+    group's worker threads release each finished collective's tensors
+    after the caller's wait returned, and freeing a tensor that Python has
+    seen takes the GIL.  Were the group still alive when the interpreter
+    finalises, that thread would be ended inside a noexcept destructor,
+    and the process aborts ("terminate called without an active
+    exception").  ``destroy_process_group`` drops the last reference
+    (:attr:`Mesh.group` holds none, so a Simulator or any other object
+    that still holds the mesh does not keep the group), and the group's
+    destructor drains its queue and joins its threads before this function
+    returns."""
     dev = _rank_device(rank, ndev, device, share_device)
     _enter_rank(dev, ndev)
     dist.init_process_group(

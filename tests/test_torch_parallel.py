@@ -412,3 +412,52 @@ def test_sharded_direct_matches_reference(ranks, direct_cases, ndev, scheme,
     got = ranks(ndev)["direct"][f"{scheme}{dim}"]
     assert got.shape == want.shape
     assert _rel(got, want) < 1e-5
+
+
+TEARDOWN_SPAWNS = 10     # 2-rank spawns, TEARDOWN_AT_ONCE at a time
+TEARDOWN_AT_ONCE = 5
+TEARDOWN_LIMIT_S = 60.0  # the whole test's own time limit
+
+
+def test_rank_teardown_frees_the_group_before_exit():
+    """Ten spawns of two gloo ranks that end as a -chips run's ranks end
+    (a mesh-mode Simulator holding the mesh in a reference cycle, closed,
+    then parallel.mesh's teardown), five at a time so that they load the
+    host.  Every spawn returns, and no rank reaches its exit with a thread
+    of the gloo group alive (the rank ends with code 3 if one is: a group
+    freed only as the interpreter finalises aborts the process when its
+    worker thread frees a collective's tensor).  The spawns finish within
+    TEARDOWN_LIMIT_S, checked by the test itself; past it the ranks still
+    running are stopped and their spawns joined before the test fails, so
+    that none outlives it."""
+    import multiprocessing
+    import threading
+    import time
+
+    results = []
+
+    def one():
+        try:
+            results.append(PM.spawn(W.teardown, 2, 5, device="cpu",
+                                    timeout=30))
+        except Exception as e:          # noqa: BLE001 - reported below
+            results.append(e)
+
+    t0 = time.monotonic()
+    for _ in range(TEARDOWN_SPAWNS // TEARDOWN_AT_ONCE):
+        threads = [threading.Thread(target=one, daemon=True)
+                   for _ in range(TEARDOWN_AT_ONCE)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(max(0.0, TEARDOWN_LIMIT_S - (time.monotonic() - t0)))
+        late = any(t.is_alive() for t in threads)
+        while any(t.is_alive() for t in threads):
+            # the ranks are this process's children: a stopped rank fails
+            # its spawn, which returns
+            for child in multiprocessing.active_children():
+                child.kill()
+            for t in threads:
+                t.join(1.0)
+        assert not late, f"spawns still running after {TEARDOWN_LIMIT_S} s"
+    assert results == [True] * TEARDOWN_SPAWNS, results

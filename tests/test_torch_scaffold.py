@@ -199,7 +199,9 @@ def test_port_imports_no_jax():
         "'scripts.stale_margin_probe', 'scripts.cadence_probe', "
         "'scripts.bench', 'parallel.mesh', 'parallel.fmm_shard', "
         "'parallel.fmm_pshard', 'scripts.graft_entry', "
-        "'scripts.pshard_scaling']\n"
+        "'scripts.pshard_scaling', 'scripts.stale_anatomy', "
+        "'scripts.err_diag', 'scripts.leaf_size_probe', "
+        "'scripts.sortmode_probe']\n"
         "missing = [m for m in new if P.__name__ + '.' + m not in "
         "sys.modules]\n"
         "assert not missing, missing\n"

@@ -202,3 +202,64 @@ def parallel_scenarios(mesh, spec):
     if "direct" in spec:
         out["direct"] = sharded_direct(mesh, *spec["direct"])
     return out
+
+
+def _group_threads() -> list:
+    """Names of this process's threads that belong to a gloo process group
+    (its worker threads ``pt_gloo_runloop`` and its transport thread
+    ``gloo_tcp_loop``), read from /proc."""
+    import os
+    names = []
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/comm") as f:
+                name = f.read().strip()
+        except OSError:       # the thread ended meanwhile
+            continue
+        if "gloo" in name:
+            names.append(name)
+    return sorted(names)
+
+
+def _exit_if_group_threads() -> None:
+    """Exit with code 3 if a gloo thread is still alive.  A thread joined
+    just before can stay listed in /proc for a moment, so the check waits
+    up to 2 s for the list to empty; a group that was never freed keeps
+    its threads for good."""
+    import os
+    import sys
+    import time
+    deadline = time.monotonic() + 2.0
+    left = _group_threads()
+    while left and time.monotonic() < deadline:
+        time.sleep(0.05)
+        left = _group_threads()
+    if left:
+        print(f"rank exits with the group's threads alive: {left}",
+              file=sys.stderr, flush=True)
+        os._exit(3)
+
+
+def teardown(mesh, steps):
+    """Ends the way a ``-chips`` run's ranks end: a mesh-mode Simulator
+    (whose step closures hold it, and so the mesh, in a reference cycle)
+    runs `steps` steps across a rebuild boundary and is closed; the rank
+    then leaves through ``parallel.mesh``'s teardown.  At exit, before the
+    interpreter finalises (``atexit``), the rank ends with code 3 if a
+    thread of the gloo group is still alive: the group's destructor did
+    not run while the interpreter could still serve those threads."""
+    import atexit
+    atexit.register(_exit_if_group_threads)
+    torch.set_num_threads(1)
+    n = 64 * mesh.ndev
+    cfg = SimConfig(fmm_order=3, tree_radius=2.0, tree_steps=2, tree_L=3)
+    sim = Simulator(cfg, n, engine="fmm3_kd", mesh=mesh)
+    try:
+        rng = np.random.default_rng(0)
+        pos = (rng.normal(size=(n, 3)) * 1e-3).astype(np.float32)
+        st = sim.init_acc(particle_state_from_numpy(
+            pos, np.zeros_like(pos), device=mesh.device))
+        st = sim.run(st, steps)
+    finally:
+        sim.close()
+    return bool(torch.isfinite(st.pos).all())
