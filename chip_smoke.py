@@ -86,16 +86,24 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      force evaluation, the force and its far / halo / near parts timed,
      then the mesh-mode Simulator: init_acc + 3 windows of tree_steps=8
      with the async pipeline (one priming refresh, one adopted background
-     rebuild), finite, all ranks equal, and on every rank as many P2P
-     kernel launches as force evaluations.  Then make_sharded_direct, ring
-     and all-gather, on 2 ranks sharing the card at N=30001 against the
-     single-device direct kernel (<= 1e-5), the direct kernel's
-     separate-targets entry against the plain block-on-block form (<=
-     1e-5, CUDA-event times of both), and the CLI with -chips 1 (snapshot
-     names and sizes; -chips 2 is refused with -1), and the dry run of
-     scripts/graft_entry.py on 2 ranks sharing the card (with the default
-     placement it raises: one device).  A rank that raises fails the run.
-     The timings are labelled "N ranks sharing one <card>";
+     rebuild) with CUDA graphs cut at the collectives, and at 1 and 2
+     ranks twice more with CO_CUDA_GRAPHS=0 from the same start: finite,
+     all ranks equal, on every rank as many P2P kernel launches as force
+     evaluations in both modes, with graphs a capture on every rank and
+     as many on each, the same collective calls a step in both modes, and
+     graphs against eager within max(2 x eager against eager, 1e-6) of
+     max|pos|; s/step, captures, capture seconds, segments a step,
+     collective calls a step and peak memory per rank printed.  Then
+     make_sharded_direct, ring and all-gather, on 2 ranks sharing the card
+     at N=30001 against the single-device direct kernel (<= 1e-5), the
+     direct kernel's separate-targets entry against the plain
+     block-on-block form (<= 1e-5, CUDA-event times of both), and the CLI
+     with -chips 1 (snapshot names and sizes; -chips 2 is refused with
+     -1; the CLI's rank function replays a captured step 17 times), and
+     the dry run of scripts/graft_entry.py on 2 ranks sharing the card
+     (with the default placement it raises: one device).  A rank that
+     raises fails the run.  The timings are labelled "N ranks sharing one
+     <card>";
  16. graphs: the Simulator's CUDA graphs (utils/graphs.py; every phase
      above runs with them, as a user's run does) against the same steps
      run eagerly (CO_CUDA_GRAPHS=0) from one start: Simulator("direct") on
@@ -646,15 +654,17 @@ def _phase_viewer():
             print(f"viewer {f}: {w} x {h}, {red} red pixels")
 
 
-def _mesh_rank(mesh, windows):
+def _mesh_rank(mesh, windows, modes):
     """One rank of the multi-device phase at N=1M (p=6, r=1.67, the
     README's Gaussian beam, seed 0): the particle-sharded force against the
     single-device padded force on the same tree (no geometry refresh in
     either) and against the Kahan oracle, the hop histogram, the bytes each
     collective is handed in one force evaluation, the force's parts timed,
-    then the mesh-mode Simulator over `windows` windows of 8 steps.
-    Returns rank 0's record; a failed check raises on the rank that sees
-    it."""
+    then the mesh-mode Simulator over `windows` windows of 8 steps from one
+    start in each of `modes` (True: CUDA graphs; False: eager), and with
+    two eager runs the graphs within max(2 x eager against eager, 1e-6) of
+    max|pos| of the first.  Returns rank 0's record; a failed check raises
+    on the rank that sees it."""
     import torch
     from coulomb_oscillators_tpu_torch import SimConfig
     from coulomb_oscillators_tpu_torch.models import init_dist as ID
@@ -729,27 +739,83 @@ def _mesh_rank(mesh, windows):
     rec["near_ms"], _ = timed(lambda: ps.near_padded(cat, loc))
     del cat, ppad, ppad_l, acc_l, loc, lists, fs, eng, ps
 
-    # mesh-mode Simulator: init_acc + `windows` windows of tree_steps=8
-    # with the async pipeline (the first boundary primes it, the next
-    # adopts the background rebuild)
-    sim = Simulator(cfg, N, engine="fmm3_kd", mesh=mesh)
+    # the mesh-mode Simulator from one start in each of `modes` (CUDA
+    # graphs on or off); graphs against eager on every rank
+    sims, finals = [], []
+    for graphs_on in modes:
+        r, final = _mesh_sim(mesh, cfg, pos_h, vel_h, windows, graphs_on)
+        sims.append(r)
+        finals.append(final)
+    rec["sims"] = sims
+    eager = [f for f, g in zip(finals, modes) if not g]
+    if len(eager) >= 2:
+        rec["eager_vs_eager"], _ = _rel_dev(eager[1], eager[0])
+        rec["graph_vs_eager"], _ = _rel_dev(finals[modes.index(True)],
+                                            eager[0])
+        bound = max(2 * rec["eager_vs_eager"], 1e-6)
+        _require(rec["graph_vs_eager"] <= bound, f"rank {mesh.rank}: mesh "
+                 f"graphs vs eager {rec['graph_vs_eager']:.3e} <= "
+                 f"max(2 x {rec['eager_vs_eager']:.3e}, 1e-6)")
+    return rec
+
+
+def _mesh_sim(mesh, cfg, pos_h, vel_h, windows, graphs_on):
+    """One rank's mesh-mode Simulator at N=1M with ``CO_CUDA_GRAPHS`` 1 or
+    0: init_acc + `windows` windows of tree_steps=8 with the async
+    pipeline (the first boundary primes it, the next adopts the background
+    rebuild), each window run as its first step (the boundary, the ranks'
+    re-capture vote, a capture), timed, and then the rest, whose
+    collective calls a step are counted and whose s/step is timed alone;
+    the captures so far are read after each window.  Checks on every rank: all ranks hold the same
+    state and adopted the same lists, finite [N, 3] positions, P2P
+    launches == force evaluations, the rebuilds; with graphs, captures >=
+    1 and the same on every rank.  Returns (the record, with per-rank
+    lists, the final positions)."""
+    import torch
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.simulate import Simulator
+    from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
+
+    dev = mesh.device
+    os.environ["CO_CUDA_GRAPHS"] = "1" if graphs_on else "0"
+    try:
+        sim = Simulator(cfg, N, engine="fmm3_kd", mesh=mesh)
+    finally:
+        del os.environ["CO_CUDA_GRAPHS"]
     try:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         p2p_cuda.launches = 0
         sim.init_acc(particle_state_from_numpy(pos_h, vel_h, device=dev))
         ts = sim.config.tree_steps
-        win_s = []
+        win_s, first_s, rest_s, step_calls, caps = [], [], [], [], []
         for _ in range(windows):
             torch.cuda.synchronize()
             mesh.barrier()
             tw = time.perf_counter()
-            sim.advance_padded(ts)
+            sim.advance_padded(1)
+            torch.cuda.synchronize()
+            tr = time.perf_counter()
+            before = dict(mesh.calls)
+            sim.advance_padded(ts - 1)
             torch.cuda.synchronize()
             win_s.append(time.perf_counter() - tw)
+            first_s.append(tr - tw)
+            rest_s.append((time.perf_counter() - tr) / (ts - 1))
+            g = sim.graph
+            caps.append([g.captures, round(g.capture_seconds, 4)] if g
+                        else [0, 0.0])
+            step_calls.append({k: (v - before.get(k, 0)) / (ts - 1)
+                               for k, v in mesh.calls.items()})
         final = sim.current_state()
         torch.cuda.synchronize()
         launches = p2p_cuda.launches
         fstate = sim._fstate
+        g = sim.graph
+        graph = ([g.captures, g.segments, g.capture_seconds] if g
+                 else [0, 0, 0.0])
+        peak = [torch.cuda.max_memory_allocated() / 2**30,
+                torch.cuda.max_memory_reserved() / 2**30]
     finally:
         sim.close()
     evals = 1 + windows * ts
@@ -761,19 +827,61 @@ def _mesh_rank(mesh, windows):
             "perm", "p2p_src", "m2l_tgt", "m2l_src", "p2p_row_ptr",
             "p2p_col2d", "m2l_gtgt")])
     rows = mesh.all_gather(digest[None].contiguous())
-    counts = mesh.all_gather(torch.tensor([launches], device=dev))
+    per_rank = mesh.all_gather(torch.tensor(
+        [[launches, graph[0], graph[1], graph[2]] + peak],
+        dtype=torch.float64, device=dev)).cpu()
     _require(bool((rows == rows[0]).all()), "all ranks hold the same state "
              "and adopted the same lists")
     _require(bool(torch.isfinite(final.pos).all())
              and final.pos.shape == (N, 3), "finite [N, 3] positions")
-    _require(launches == evals, f"rank {mesh.rank}: {launches} P2P kernel "
-             f"launches == {evals} force evaluations")
+    _require(launches == evals, f"rank {mesh.rank} (graphs={graphs_on}): "
+             f"{launches} P2P kernel launches == {evals} force evaluations")
     _require(sim.rebuilds["adopt_full"] == windows - 2
              and sim.rebuilds["sync_refresh"] == 1,
              f"{windows - 2} adopted rebuilds: {dict(sim.rebuilds)}")
-    rec.update(sim_launches=counts.tolist(), sim_evals=evals, win_s=win_s,
-               rebuilds=dict(sim.rebuilds), wait_s=sim.rebuild_wait_total)
-    return rec
+    captures = per_rank[:, 1]
+    if graphs_on:
+        _require(bool((captures >= 1).all())
+                 and bool((captures == captures[0]).all()),
+                 f"every rank captured, as often as the others: "
+                 f"{captures.tolist()}")
+    else:
+        _require(not bool(captures.any()), "eager: no capture")
+    _require(all(c == step_calls[0] for c in step_calls),
+             f"the same collectives every step: {step_calls}")
+    r = dict(graphs=graphs_on, win_s=win_s, first_step_s=first_s,
+             rest_s_per_step=rest_s, captures_after_window=caps,
+             calls_per_step=step_calls[0],
+             launches=per_rank[:, 0].long().tolist(), evals=evals,
+             captures=captures.long().tolist(),
+             segments=per_rank[:, 2].long().tolist(),
+             capture_s=per_rank[:, 3].tolist(),
+             peak_gib=per_rank[:, 4].tolist(),
+             peak_reserved_gib=per_rank[:, 5].tolist(),
+             rebuilds=dict(sim.rebuilds), wait_s=sim.rebuild_wait_total)
+    return r, final.pos
+
+
+def _cli_graph_rank(mesh, argv):
+    """The CLI's rank function (what ``cli.main`` spawns for ``-chips``)
+    on `argv`, with every StepGraph it makes recorded: (its return code,
+    the graphs' captures, their replays)."""
+    from coulomb_oscillators_tpu_torch import cli
+    from coulomb_oscillators_tpu_torch.utils import graphs
+    made = []
+    init = graphs.StepGraph.__init__
+
+    def record(self, body):
+        init(self, body)
+        made.append(self)
+
+    graphs.StepGraph.__init__ = record
+    try:
+        rc = cli._rank_main(mesh, cli.build_parser().parse_args(argv),
+                            ["nbco3-torch"] + argv)
+    finally:
+        graphs.StepGraph.__init__ = init
+    return rc, [g.captures for g in made], [g.replays for g in made]
 
 
 def _mesh_direct_rank(mesh, n):
@@ -820,18 +928,21 @@ def _phase_multi_device(dev, smi, torch):
     windows = 3
     p2p_by_run = {}
     # 2 and 4 ranks sharing the card (gloo, collectives through host
-    # memory), then 1 rank with the default placement (NCCL on cuda:0)
-    for P, kw in ((2, dict(device="cuda:0", share_device=True)),
-                  (4, dict(device="cuda:0", share_device=True)),
-                  (1, dict())):
+    # memory), then 1 rank with the default placement (NCCL on cuda:0);
+    # the mesh Simulator with CUDA graphs, and at 1 and 2 ranks twice
+    # eagerly from the same start
+    for P, kw, modes in ((2, dict(device="cuda:0", share_device=True),
+                          (True, False, False)),
+                         (4, dict(device="cuda:0", share_device=True),
+                          (True,)),
+                         (1, dict(), (True, False, False))):
         t0 = time.perf_counter()
-        r = PM.spawn(_mesh_rank, P, windows, timeout=300, **kw)
+        r = PM.spawn(_mesh_rank, P, windows, modes, timeout=300, **kw)
         label = (f"{P} ranks sharing one {smi}" if P > 1
                  else f"1 rank (NCCL) on {smi}")
         _require(r["backend"] == ("gloo" if P > 1 else "nccl"),
                  f"backend {r['backend']}")
         total = max(sum(r["hop_hist"].values()), 1)
-        per_step = sorted(w / 8 for w in r["win_s"][1:])
         print(f"mesh [{label}]: L={r['L']} C={r['C']} hops={r['hops']} "
               f"dmax={r['dmax']}; sharded force vs single-device "
               f"{r['vs_single']:.3e} of max|a| (bound {P2P_TOL}), vs Kahan "
@@ -841,18 +952,41 @@ def _phase_multi_device(dev, smi, torch):
               f"evaluation {r['bytes_per_eval']} (calls "
               f"{r['calls_per_eval']}); rank 0 force {r['force_ms']:.2f} ms "
               f"= far {r['far_ms']:.2f} + halo {r['halo_ms']:.2f} + near "
-              f"{r['near_ms']:.2f} ms; simulator window s {r['win_s']} "
-              f"(median s/step of windows 2-{windows} "
-              f"{per_step[len(per_step) // 2]:.4f}); rebuilds "
-              f"{r['rebuilds']}, boundary wait {r['wait_s']:.3f} s; p2p "
-              f"launches per rank {r['sim_launches']} = force evals "
-              f"{r['sim_evals']}; spawn {time.perf_counter() - t0:.1f} s")
-        _require(all(c == r["sim_evals"] for c in r["sim_launches"])
-                 and len(r["sim_launches"]) == P,
-                 f"P2P launches on every rank {r['sim_launches']} == "
-                 f"{r['sim_evals']}")
-        p2p_by_run[f"mesh_{P}" + ("_nccl" if P == 1 else "")] = \
-            r["sim_launches"][0]
+              f"{r['near_ms']:.2f} ms; spawn "
+              f"{time.perf_counter() - t0:.1f} s")
+        for sim in r["sims"]:
+            per_step = sorted(w / 8 for w in sim["win_s"][1:])
+            print(f"mesh simulator [{label}] graphs={sim['graphs']}: window "
+                  f"s {sim['win_s']} (median s/step of windows 2-{windows} "
+                  f"{per_step[len(per_step) // 2]:.4f}); its first step "
+                  f"(the boundary, a vote, a capture) s "
+                  f"{sim['first_step_s']}; s/step of the 7 steps after it "
+                  f"{sim['rest_s_per_step']}; rank 0's captures and their "
+                  f"s after each window {sim['captures_after_window']}; "
+                  f"captures per rank "
+                  f"{sim['captures']} in {sim['capture_s']} s, segments a "
+                  f"step {sim['segments']}; collective calls a step "
+                  f"{sim['calls_per_step']}; peak GiB allocated per rank "
+                  f"{[round(x, 3) for x in sim['peak_gib']]} (reserved "
+                  f"{[round(x, 3) for x in sim['peak_reserved_gib']]}); "
+                  f"rebuilds {sim['rebuilds']}, boundary wait "
+                  f"{sim['wait_s']:.3f} s; p2p launches per rank "
+                  f"{sim['launches']} = force evals {sim['evals']}")
+            _require(all(c == sim["evals"] for c in sim["launches"])
+                     and len(sim["launches"]) == P,
+                     f"P2P launches on every rank {sim['launches']} == "
+                     f"{sim['evals']}")
+            _require(sim["calls_per_step"] == r["sims"][0]["calls_per_step"],
+                     "the same collective calls a step in both modes")
+        if "graph_vs_eager" in r:
+            print(f"mesh simulator [{label}]: max|dpos|/max|pos| graphs vs "
+                  f"eager {r['graph_vs_eager']:.3e}, eager vs eager "
+                  f"{r['eager_vs_eager']:.3e} (bound max(2 x eager vs "
+                  f"eager, 1e-6))")
+        key = f"mesh_{P}" + ("_nccl" if P == 1 else "")
+        for sim in r["sims"][:2]:
+            p2p_by_run[key + ("" if sim["graphs"] else "_eager")] = \
+                sim["launches"][0]
 
     # the sharded direct force, 2 ranks sharing the card
     r = PM.spawn(_mesh_direct_rank, 2, N_CLI, device="cuda:0",
@@ -913,6 +1047,18 @@ def _phase_multi_device(dev, smi, torch):
     print(f"cli -chips 1 N={N_CLI} fmm3_kd: 16 iterations in {tc:.3f} s; "
           f"{len(got)} snapshots of {2 * N_CLI * 3 * 4} bytes; -chips 2 "
           f"refused (one device visible)")
+    # a -chips rank is the CLI's own rank function; it inherits
+    # CO_CUDA_GRAPHS (unset here: graphs) and takes graphs on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, caps, reps = PM.spawn(_cli_graph_rank, 1, [
+            "-n", str(N_CLI), "-iters", "16", "-steps", "8", "-chips", "1",
+            "-engine", "fmm3_kd", "-o", tmp])
+    print(f"cli -chips 1 rank: rc {rc}, its step graphs' captures {caps}, "
+          f"replays {reps}")
+    # the reference's cadence steps at iteration 0, then -iters times
+    _require(rc == 0 and len(caps) == 1 and caps[0] >= 1
+             and reps == [1 + 16], f"the -chips rank replayed a captured "
+             f"step 17 times: rc {rc}, captures {caps}, replays {reps}")
 
     # the dry run: its default placement needs a card a rank
     from coulomb_oscillators_tpu_torch.scripts import graft_entry

@@ -75,7 +75,8 @@ class PShardLists(NamedTuple):
 
 
 class PShardLocal(NamedTuple):
-    """One rank's share of the lists, on its device."""
+    """One rank's share of the lists, on its device: everything a force
+    evaluation reads, so that its body reads no host array."""
     hops: Tuple[int, ...]             # the non-zero hops, in halo order
     row_ptr: torch.Tensor             # [Gl * (1 + n_halo) + 1] int32
     col2d: torch.Tensor               # [Gl * (1 + n_halo), dmax] int32
@@ -83,6 +84,11 @@ class PShardLocal(NamedTuple):
     m2l_src: torch.Tensor
     m2l_val: torch.Tensor
     m2l_gtgt: torch.Tensor
+    # the CSR's entries as a padded flat list for the plain near-field sum
+    # (dim 2, or a CPU rank; else empty): the target row of each entry,
+    # Gl * (1 + n_halo) at a pad, and the packed entry, 0 at a pad
+    p2p_tgt: torch.Tensor             # [Ke] int32
+    p2p_src: torch.Tensor             # [Ke] int32
 
 
 def _signed_hop(dev_src: np.ndarray, dev_tgt: np.ndarray, ndev: int):
@@ -200,6 +206,29 @@ def local_csr(eng: KdFmmEngine, lists: PShardLists, hops: Tuple[int, ...],
     return halo, row_ptr, _build_col2d(p2p, row_ptr, rows, blocks, dmax)
 
 
+def local_entries(eng: KdFmmEngine, row_ptr: np.ndarray,
+                  col2d: np.ndarray):
+    """The entries of a rank's CSR (:func:`local_csr`) as a padded flat
+    list for ``p2p_cuda.p2p_plain_entries``: (target row [Ke] int32, packed
+    entry [Ke] int32), the valid prefix of every row in row-major order
+    (the entries the CSR form reads, in its order), then pads with the
+    target row count and a packed 0 (lane mask 0, so their pair weights
+    are exactly 0 and their sums land in a dropped row).  Ke is 1.25 x the
+    count rounded up to 1024 and never shrinks (``eng._pshard_caps``), so
+    the sum's shapes stay put across adoptions."""
+    rows = col2d.shape[0]
+    deg = np.diff(row_ptr).clip(max=col2d.shape[1])
+    tgt = np.repeat(np.arange(rows, dtype=np.int32), deg)
+    ent = col2d[np.arange(col2d.shape[1])[None, :] < deg[:, None]]
+    caps = eng.__dict__.setdefault("_pshard_caps", {})
+    ke = caps["entries"] = max(-(-int(tgt.size * 1.25) // 1024) * 1024,
+                               1024, caps.get("entries", 0))
+    t = np.full(ke, rows, np.int32)
+    e = np.zeros(ke, np.int32)
+    t[:tgt.size], e[:ent.size] = tgt, ent
+    return t, e
+
+
 class PShardedKdFmm:
     """Particle-sharded force on padded leaf blocks; one object per rank.
 
@@ -238,11 +267,18 @@ class PShardedKdFmm:
     def localize(self, lists: PShardLists, hops: Tuple[int, ...],
                  device) -> PShardLocal:
         """This rank's rows of `lists` on `device`, with its near-field
-        CSR; kept for the `lists` object it was made from."""
+        CSR, and the CSR's padded entry list where the plain near-field
+        sum reads it (dim 2, or a CPU device); kept for the `lists` object
+        it was made from.  Host work, once a list adoption."""
         if self._local[0] is lists:
             return self._local[1]
         d = self.rank
+        device = torch.device(device)
         halo, row_ptr, col2d = local_csr(self.eng, lists, hops, self.ndev, d)
+        if self.eng.dim == 3 and device.type != "cpu":
+            tgt = ent = np.zeros(0, np.int32)      # the kernel reads the CSR
+        else:
+            tgt, ent = local_entries(self.eng, row_ptr, col2d)
         loc = PShardLocal(
             hops=halo,
             row_ptr=torch.from_numpy(row_ptr).to(device),
@@ -250,7 +286,9 @@ class PShardedKdFmm:
             m2l_tgt=lists.m2l_tgt[d].to(device),
             m2l_src=lists.m2l_src[d].to(device),
             m2l_val=lists.m2l_val[d].to(device),
-            m2l_gtgt=lists.m2l_gtgt[d].to(device))
+            m2l_gtgt=lists.m2l_gtgt[d].to(device),
+            p2p_tgt=torch.from_numpy(tgt).to(device),
+            p2p_src=torch.from_numpy(ent).to(device))
         self._local = (lists, loc)
         return loc
 
@@ -259,8 +297,16 @@ class PShardedKdFmm:
                      hops: Tuple[int, ...]) -> torch.Tensor:
         """Coulomb acceleration (kappa-scaled) on this rank's leaf run
         [G/P, C, dim] of the padded positions.  Every rank calls it with
-        the same `fs`, `lists` and `hops`."""
-        loc = self.localize(lists, hops, ppad_l.device)
+        the same `fs`, `lists` and `hops` (the reference's signature; the
+        lists are localized at their first use)."""
+        return self.force_local(ppad_l, fs,
+                                self.localize(lists, hops, ppad_l.device))
+
+    def force_local(self, ppad_l: torch.Tensor, fs: FmmState,
+                    loc: PShardLocal) -> torch.Tensor:
+        """:meth:`force_padded` on lists already localized: it reads device
+        tensors only, so a CUDA graph can capture it between its
+        collectives (``utils/graphs.py``)."""
         far = self.far_padded(ppad_l, fs, loc)
         near = self.near_padded(self.halo_blocks(ppad_l, loc), loc)
         return (far + near.reshape(ppad_l.shape)) \
@@ -287,35 +333,69 @@ class PShardedKdFmm:
     def halo_blocks(self, ppad_l: torch.Tensor,
                     loc: PShardLocal) -> torch.Tensor:
         """``[own blocks | visiting blocks of each halo hop]``
-        [Glb * (1 + n_halo), CB, dim]: one ring_shift per hop present."""
-        own = ppad_l.reshape(self.Glb, self.eng.C_blk, self.eng.dim)
-        return torch.cat([own] + [self.mesh.ring_shift(own, h)
-                                  for h in loc.hops])
+        [Glb * (1 + n_halo), CB, dim]: one ring_shift per hop present.
+        Each visiting block is copied into its slot as it arrives, so that
+        work separates two ring_shifts (a CUDA graph's segment between two
+        collectives is never empty, ``utils/graphs.py``)."""
+        Glb = self.Glb
+        own = ppad_l.reshape(Glb, self.eng.C_blk, self.eng.dim)
+        cat = own.new_empty((Glb * (1 + len(loc.hops)),) + own.shape[1:])
+        cat[:Glb] = own
+        for i, h in enumerate(loc.hops, 1):
+            cat[i * Glb:(i + 1) * Glb] = self.mesh.ring_shift(own, h)
+        return cat
 
     def near_padded(self, cat: torch.Tensor,
                     loc: PShardLocal) -> torch.Tensor:
         """Near field of the rank's own blocks [Glb, CB, dim], unscaled,
-        from :meth:`halo_blocks`: one pass over the concatenation (the
-        Hopper kernel on a CUDA tensor in dim 3, else the plain version)."""
+        from :meth:`halo_blocks`: one pass over the concatenation.  The
+        Hopper kernel on the CSR for a CUDA tensor in dim 3; else (dim 2 on
+        every device, as the single-device ``_stage_p2p``; or a CPU tensor)
+        the plain sum over the padded entry list, whose shapes never depend
+        on the data.  Bitwise the plain sum over the CSR."""
         eng = self.eng
-        fn = p2p_cuda.p2p if eng.dim == 3 else p2p_cuda.p2p_plain
-        near = fn(cat, loc.row_ptr, loc.col2d, eng.nsub, eng.config.eps2)
+        if eng.dim == 3 and cat.device.type != "cpu":
+            near = p2p_cuda.p2p(cat, loc.row_ptr, loc.col2d, eng.nsub,
+                                eng.config.eps2)
+        else:
+            near = p2p_cuda.p2p_plain_entries(cat, loc.p2p_tgt, loc.p2p_src,
+                                              eng.nsub, eng.config.eps2)
         return near[:self.Glb]
 
 
 def _trap_force(ps: PShardedKdFmm, omega0_sq):
-    """force(ppad_l, fs, lists, hops): the sharded Coulomb force with the
-    trap term, pads zeroed, on this rank's shard."""
+    """force(ppad_l, fs, loc): the sharded Coulomb force with the trap
+    term, pads zeroed, on this rank's shard, from localized lists."""
     eng = ps.eng
     lo = ps.rank * ps.Gl
 
-    def force(ppad_l, fs, lists, hops):
-        acc = add_elastic(ppad_l, ps.force_padded(ppad_l, fs, lists, hops),
+    def force(ppad_l, fs, loc):
+        acc = add_elastic(ppad_l, ps.force_local(ppad_l, fs, loc),
                           omega0_sq)
         mask3 = eng.mask3(ppad_l.device)[lo:lo + ps.Gl]
         return torch.where(mask3[..., None], acc, 0.0)
 
     return force
+
+
+def make_psharded_body(eng: KdFmmEngine, mesh: Mesh, config, omega0_sq,
+                       axis: str = "dp"):
+    """(ps, body): body(pstate, (fs, loc)) advances this rank's shard one
+    integrator step against the frozen `fs` and the rank's localized lists
+    `loc` (:meth:`PShardedKdFmm.localize`).  It reads device tensors only
+    and its Python statics (the halo hops) sit in `loc`, so
+    ``utils.graphs.StepGraph`` captures it, cut at its collectives: the
+    twin of the step inside the reference's jitted ``fori_loop``, whose
+    compile is cached per ``hops``."""
+    ps = PShardedKdFmm(eng, mesh, axis)
+    step = I.make_step(_trap_force(ps, omega0_sq), config.integrator,
+                       config.dt)
+
+    def body(pstate, frozen):
+        fs, loc = frozen
+        return step(pstate, fs, loc)
+
+    return ps, body
 
 
 def make_psharded_scan(eng: KdFmmEngine, mesh: Mesh, config, omega0_sq,
@@ -324,16 +404,15 @@ def make_psharded_scan(eng: KdFmmEngine, mesh: Mesh, config, omega0_sq,
 
     scan_fn(pstate, fs, lists, hops, k) advances this rank's shard k
     integrator steps against the frozen `fs` (no geometry refresh, see the
-    module docstring): the multi-device twin of the Simulator's padded
-    window loop."""
-    ps = PShardedKdFmm(eng, mesh, axis)
-    force = _trap_force(ps, omega0_sq)
+    module docstring): the lists are localized once, then the step body of
+    :func:`make_psharded_body` runs k times eagerly.  The Simulator runs
+    that body as CUDA graphs on CUDA tensors (``simulate.py``)."""
+    ps, body = make_psharded_body(eng, mesh, config, omega0_sq, axis)
 
     def scan_fn(pstate, fs, lists, hops, k):
-        step = I.make_step(lambda p: force(p, fs, lists, hops),
-                           config.integrator, config.dt)
+        frozen = (fs, ps.localize(lists, hops, pstate.pos.device))
         for _ in range(k):
-            pstate = step(pstate)
+            pstate = body(pstate, frozen)
         return pstate
 
     return ps, scan_fn

@@ -7,12 +7,17 @@ form a ``torch.distributed`` process group, and the collectives are called
 explicitly.  :class:`Mesh` is the twin of the reference's one-axis mesh: it
 holds the rank count and this process's rank and device, it names the
 group (the default one, never held: :func:`_rank_main` says why), and
-its three methods are the only place where the port calls
+its three collectives are the only place where the port calls
 ``torch.distributed``:
 
   * :meth:`Mesh.all_gather` (the reference's tiled ``all_gather``),
   * :meth:`Mesh.all_reduce_sum` (``psum``),
   * :meth:`Mesh.ring_shift` (``ppermute`` by k places around the ring).
+
+Each goes through ``utils.graphs.collective``: inside the capture of a CUDA
+graph it is a cut point between two captured segments, which every replay
+of the step runs for real (the twin of a collective inside the reference's
+jitted ``shard_map``).
 
 :func:`spawn` starts the ranks (``torch.multiprocessing.spawn``) with a
 file-store rendezvous in a temporary directory, so no TCP port is taken;
@@ -66,6 +71,7 @@ import torch.distributed as dist
 
 from coulomb_oscillators_tpu_torch import native
 from coulomb_oscillators_tpu_torch.ops import direct as D
+from coulomb_oscillators_tpu_torch.utils import graphs
 
 # seconds a collective may wait for its peers before the group fails
 TIMEOUT = 120.0
@@ -106,21 +112,13 @@ class Mesh:
         """The ranks' `x` [m, ...] concatenated along dim 0 in rank order:
         [ndev * m, ...] on every rank.  Under gloo a CUDA tensor goes
         through host memory."""
-        self._count("all_gather", x)
-        w = self._wire(x)
-        parts = [torch.empty_like(w) for _ in range(self.ndev)]
-        dist.all_gather(parts, w, group=self.group)
-        return torch.cat(parts).to(x.device)
+        return graphs.collective(self._all_gather, x,
+                                 (self.ndev * x.shape[0], *x.shape[1:]))
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of the ranks' `x`, a new tensor on every rank.  Under
         gloo a CUDA tensor goes through host memory."""
-        self._count("all_reduce_sum", x)
-        w = self._wire(x)
-        if w.data_ptr() == x.data_ptr():      # leave the input alone
-            w = w.clone()
-        dist.all_reduce(w, op=dist.ReduceOp.SUM, group=self.group)
-        return w.to(x.device)
+        return graphs.collective(self._all_reduce_sum, x, x.shape)
 
     def ring_shift(self, x: torch.Tensor, k: int) -> torch.Tensor:
         """The `x` of rank (rank + k) % ndev: every rank sends its own to
@@ -128,10 +126,35 @@ class Mesh:
         exchange with each other do not deadlock.  The identity when k is a
         multiple of ndev.  Under gloo a CUDA tensor goes through host
         memory."""
-        src = (self.rank + k) % self.ndev
-        if src == self.rank:
+        if (self.rank + k) % self.ndev == self.rank:
             return x
+        return graphs.collective(lambda t: self._ring_shift(t, k), x,
+                                 x.shape)
+
+    # The collectives themselves.  Each public method above hands one to
+    # ``utils.graphs.collective``, which runs it now, or, while a CUDA
+    # graph is captured, makes it a cut point that every replay runs; so
+    # the counters advance where a collective really runs (a capture's
+    # warm-up, every replay, every eager call), never in a capture.
+
+    def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        self._count("all_gather", x)
+        w = self._wire(x)
+        parts = [torch.empty_like(w) for _ in range(self.ndev)]
+        dist.all_gather(parts, w, group=self.group)
+        return torch.cat(parts).to(x.device)
+
+    def _all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        self._count("all_reduce_sum", x)
+        w = self._wire(x)
+        if w.data_ptr() == x.data_ptr():      # leave the input alone
+            w = w.clone()
+        dist.all_reduce(w, op=dist.ReduceOp.SUM, group=self.group)
+        return w.to(x.device)
+
+    def _ring_shift(self, x: torch.Tensor, k: int) -> torch.Tensor:
         self._count("ring_shift", x)
+        src = (self.rank + k) % self.ndev
         dst = (self.rank - k) % self.ndev
         w = self._wire(x)
         buf = torch.empty_like(w)

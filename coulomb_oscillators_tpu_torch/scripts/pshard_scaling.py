@@ -13,7 +13,11 @@ spawns P ranks, runs the mesh-mode Simulator's window loop, and records
     processes on one host; on a card every rank shares the one device
     (``share_device=True``) and its collectives go through host memory.
     Either way the ranks share one machine, so s/step measures the total
-    work serialized and is labelled so: it is NOT a scaling figure.
+    work serialized and is labelled so: it is NOT a scaling figure;
+  * beside it, per rank: the captures of the window's CUDA graphs, their
+    seconds, the graph segments a step (its collectives + 1; on a card,
+    unless ``CO_CUDA_GRAPHS=0``; 0 on CPU ranks, which run eagerly) and
+    the peak device memory allocated and reserved (null on CPU ranks).
 
 One JSON line on stdout (also written to ``--out``).
 
@@ -48,6 +52,9 @@ def _scaling_rank(mesh, npp: int, p: int, r: float, windows: int) -> dict:
     cfg = SimConfig(fmm_order=p, tree_radius=r, tree_steps=ts)
     pos, vel = C.beam(n, cfg)
     sim = Simulator(cfg, n, engine="fmm3_kd", mesh=mesh)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
     try:
         st = sim.init_acc(particle_state_from_numpy(pos, vel, device=dev))
         sim.run(st, 2 + ts)                      # warm-up, one boundary
@@ -64,21 +71,34 @@ def _scaling_rank(mesh, npp: int, p: int, r: float, windows: int) -> dict:
         mesh.calls.clear()
         acc = ps.force_padded(sim._padded.pos, sim._fstate, lists, hops)
         finite = bool(torch.isfinite(acc).all())
-        moved = dict(mesh.bytes)
+        moved, calls = dict(mesh.bytes), dict(mesh.calls)
+        g = sim.graph
+        mine = [g.captures if g else 0, g.capture_seconds if g else 0.0,
+                g.segments if g else 0]
+        if cuda:
+            mine += [torch.cuda.max_memory_allocated(dev) / 2**30,
+                     torch.cuda.max_memory_reserved(dev) / 2**30]
     finally:
         sim.close()
+    ranks = mesh.all_gather(torch.tensor([mine], dtype=torch.float64,
+                                         device=dev)).cpu()
     G, Cl = eng.G_sub, eng.st.C
     item = acc.element_size()
     hist = {str(h): int(lists.p2p_val[i].sum()) for i, h in enumerate(hops)}
     return {
         "P": P, "n": n, "L": eng.L, "G": G, "C": Cl,
         "s_per_step_ranks_sharing_one_machine": sps,
+        "captures_per_rank": ranks[:, 0].long().tolist(),
+        "capture_seconds_per_rank": ranks[:, 1].tolist(),
+        "segments_per_step_per_rank": ranks[:, 2].long().tolist(),
+        "peak_gib_per_rank": ranks[:, 3].tolist() if cuda else None,
+        "peak_reserved_gib_per_rank": ranks[:, 4].tolist() if cuda else None,
         "finite": finite, "rebuilds": dict(sim.rebuilds),
         "p2p_hop_hist": hist,
         "p2p_hop0_frac": hist["0"] / max(sum(hist.values()), 1),
         "bytes_per_eval_handed_to": moved,
         "bytes_per_eval_total": sum(moved.values()),
-        "collective_calls_per_eval": dict(mesh.calls),
+        "collective_calls_per_eval": calls,
         "shapes": {"all_gather": [G // P, eng.tables.S_M],
                    "all_reduce_sum": [_heap_off(eng.L + 1),
                                       eng.tables.S_Lt],

@@ -37,8 +37,16 @@ every rank runs the same deterministic rebuild on the gathered positions,
 so all ranks adopt identical lists without a broadcast, and the background
 rebuild thread makes no collective call.  The sharded window evaluates the
 force against the frozen tree without the geometry refresh, as the
-reference's mesh mode does.  Mesh mode always runs eagerly: its collectives
-are host calls.
+reference's mesh mode does.  Each rank localizes its share of the lists once
+an adoption, and on CUDA tensors its step body runs as CUDA graphs cut at
+the force's collectives (``utils/graphs.py``), the twin of the reference's
+jitted ``shard_map`` ``fori_loop``; ``CO_CUDA_GRAPHS=0`` and CPU ranks run
+it eagerly.  Ranks must capture together (a rank that captures runs no
+collective while its peers replay theirs), and a rank's capture key (its
+lists' shapes, its halo hops) can change at an adoption where another's
+does not: so at every window whose tree changed, the ranks combine their
+"my key changed" flags in one all_reduce_sum, and every rank captures
+again or none does.
 """
 
 from __future__ import annotations
@@ -80,6 +88,13 @@ def auto_stale_margin(vel, config: SimConfig) -> np.ndarray:
     vrms_ax = np.sqrt(np.mean(np.asarray(vel, np.float64) ** 2, axis=0))
     fac = float(os.environ.get("CO_STALE_MARGIN_FACTOR", "2.0"))
     return vrms_ax * config.dt * age * fac
+
+
+def any_rank(mesh, flag: bool) -> bool:
+    """Whether `flag` holds on any rank of `mesh`: one all_reduce_sum,
+    called by every rank's main thread at the same point."""
+    x = torch.tensor([1.0 if flag else 0.0], device=mesh.device)
+    return bool(mesh.all_reduce_sum(x)[0] > 0)
 
 
 class _HostCopy:
@@ -154,12 +169,13 @@ class Simulator:
         self._use_padded = hasattr(self._fmm, "force_padded")
         if mesh is not None:
             from coulomb_oscillators_tpu_torch.parallel.fmm_pshard import (
-                make_psharded_scan)
-            self._ps, scan = make_psharded_scan(self._fmm, mesh, config,
-                                                self.omega0_sq)
+                make_psharded_body)
+            self._ps, self._step = make_psharded_body(self._fmm, mesh, config,
+                                                      self.omega0_sq)
             self._plists = self._phops = None
-            self._scan_step = lambda pstate, fstate, k: scan(
-                pstate, fstate, self._plists, self._phops, k)
+            self._pfrozen = None      # (tree, this rank's localized lists)
+            self._voted = None        # the _pfrozen of the last graph vote
+            self._scan_step = self._mesh_window
             return
         self._step = I.make_step(self._padded_force if self._use_padded
                                  else self._grid_force,
@@ -188,9 +204,10 @@ class Simulator:
 
     def _window(self, state, frozen, k: int):
         """`k` steps of the path's step body against the frozen tree (``()``
-        for a plain engine): replays of its CUDA graph on a CUDA tensor
-        unless CO_CUDA_GRAPHS=0 was set, else eagerly.  The grid engines'
-        cell capacity is baked into the step, so it keys the capture."""
+        for a plain engine; the tree and the rank's lists in mesh mode):
+        replays of its CUDA graph on a CUDA tensor unless CO_CUDA_GRAPHS=0
+        was set, else eagerly.  The grid engines' cell capacity is baked
+        into the step, so it keys the capture."""
         if k <= 0:
             return state
         if state.pos.device.type == "cuda" and self.use_graphs:
@@ -202,6 +219,22 @@ class Simulator:
         for _ in range(k):
             state = self._step(state, frozen)
         return state
+
+    def _mesh_window(self, state, fstate, k: int):
+        """Mesh mode's `k` steps of the sharded step body against the frozen
+        tree `fstate` and this rank's lists localized for it (both set by
+        :meth:`_set_fstate`): as :meth:`_window`, with the re-capture
+        decided by all ranks together (module docstring)."""
+        frozen = self._pfrozen
+        if k > 0 and state.pos.device.type == "cuda" and self.use_graphs:
+            # every rank reaches this point with the same tree adoptions
+            # behind it, so all of them vote here or none does
+            if (self.graph is not None and frozen is not self._voted
+                    and any_rank(self._mesh,
+                                 self.graph.stale(state, frozen))):
+                self.graph.release()
+            self._voted = frozen
+        return self._window(state, frozen, k)
 
     def _pad_state(self, state: ParticleState) -> ParticleState:
         """The full original-order state as padded blocks (mesh mode: this
@@ -224,6 +257,8 @@ class Simulator:
                 shard_pair_lists)
             self._plists, self._phops = shard_pair_lists(
                 self._fmm, fstate, self._ps.ndev)
+            self._pfrozen = (fstate, self._ps.localize(
+                self._plists, self._phops, fstate.center.device))
 
     def _full_padded(self) -> ParticleState:
         """The padded state of all leaves (mesh mode: one all_gather of

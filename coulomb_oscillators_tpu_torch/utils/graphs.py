@@ -36,6 +36,34 @@ and replays that graph k times.  There is no reference module of this name.
     step added to it; the warm-up's and the capture's own additions are
     taken back (the capture launches nothing, and the warm-up's launches
     are not steps of the run).
+  * **Cut points.**  A collective that stages through host memory (gloo
+    moves a CUDA tensor through ``.cpu()``) cannot sit inside a graph.  So
+    a step body that calls :func:`collective` is captured in *segments*:
+    each call ends the segment being captured, records the collective's
+    function, its input (a tensor the segment wrote) and an output buffer
+    allocated outside the capture, and begins the next segment in the same
+    memory pool; nothing runs.  A replay of the step runs segment 0, the
+    first collective for real (reading the recorded input, writing the
+    recorded buffer), segment 1, and so on.  A body without cuts is one
+    segment: the one graph of a single-device step.  The reference's twin
+    is the jitted ``shard_map`` ``fori_loop`` whose body carries its
+    ``all_gather`` / ``psum`` / ``ppermute``
+    (``coulomb_oscillators_tpu/parallel/fmm_pshard.py``).
+  * **The trap of segments.**  A tensor that one segment allocates and a
+    later one reads (the leaf-frame monomials ``V`` that the sharded far
+    field computes before its all_gather and reads again in its L2P after
+    the all_reduce; the drifted positions across a force evaluation)
+    lives in the graphs' private pool, and nothing but the capture order
+    says that its memory is still in use.  It is safe only because every
+    segment shares the first one's pool, the segments are captured in
+    order, replayed in that order, and released together.  Never replay a
+    segment alone or release one without the others.
+  * **Ranks.**  The warm-up runs the collectives for real, the capture
+    runs none, and every replay runs one set: ranks of a mesh must capture
+    together, or their collective sequences no longer pair up.  The caller
+    makes that decision for all ranks at once (:meth:`StepGraph.stale`
+    says whether this rank would capture; ``simulate.py`` combines the
+    ranks' answers).
   * A capture or replay that fails raises: nothing runs eagerly instead.
 
 The Simulator decides where graphs run (``simulate.py``); this module
@@ -44,12 +72,17 @@ imports nothing of the port but torch.
 
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
 
 # (object, attribute name) of integer counters that replays advance
 _counters = []
+
+# ``graph``: the StepGraph this thread is capturing, if any.  The mesh's
+# collectives hold no StepGraph, so :func:`collective` asks here.
+_capturing = threading.local()
 
 
 def register_counter(obj, attr: str) -> None:
@@ -64,12 +97,54 @@ def unregister_counter(obj, attr: str) -> None:
                     if not (o is obj and a == attr)]
 
 
+def collective(fn, x: torch.Tensor, out_shape, out_dtype=None):
+    """``fn(x)``, a collective of a mesh (``parallel/mesh.py``) that hands
+    back a new tensor of `out_shape` and `out_dtype` (x's by default).
+
+    Outside a capture it runs now.  Inside one it is a cut point (see the
+    module docstring): the segment being captured ends, `fn`, `x` and an
+    output buffer allocated outside the capture are recorded, the next
+    segment begins in the same pool, and the buffer is returned unfilled;
+    each replay fills it with ``fn(x)``."""
+    graph = getattr(_capturing, "graph", None)
+    if graph is None:
+        return fn(x)
+    return graph._cut(fn, x, tuple(out_shape), out_dtype or x.dtype)
+
+
 def _read_counters(counters) -> list:
     return [getattr(o, a) for o, a in counters]
 
 
-def _spec(tensors) -> tuple:
-    return tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
+def _leaves(x) -> list:
+    """The tensors of `x`, a tensor or nested tuples of them (NamedTuples
+    and non-tensor leaves such as Python ints allowed), depth first."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for a in x for t in _leaves(a)]
+    return []
+
+
+def _rebuild(x, tensors):
+    """`x` with its tensors replaced, in :func:`_leaves` order, by those of
+    the iterator `tensors`; its other leaves kept."""
+    if isinstance(x, torch.Tensor):
+        return next(tensors)
+    if isinstance(x, tuple):
+        items = [_rebuild(a, tensors) for a in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def _spec(x):
+    """What a capture bakes in: the shape, dtype and device of every
+    tensor of `x`, and the value of every other leaf."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype, x.device)
+    if isinstance(x, tuple):
+        return tuple(_spec(a) for a in x)
+    return x
 
 
 def _like(x, items):
@@ -83,12 +158,14 @@ def _copy_into(dst, src) -> None:
 
 
 class StepGraph:
-    """One step of ``body(state, frozen) -> state`` captured as a CUDA
-    graph and replayed (see the module docstring).
+    """One step of ``body(state, frozen) -> state`` captured as CUDA
+    graphs (one, or one a segment between collectives) and replayed (see
+    the module docstring).
 
-    `state` is a tuple type of tensors (``ParticleState``) and `frozen` a
-    tuple of tensors (a NamedTuple tree state, or ``()``); the body must
-    not change either in place, and must run on their device's current
+    `state` is a tuple type of tensors (``ParticleState``) and `frozen`
+    nested tuples of tensors and Python values (a NamedTuple tree state,
+    ``()``, or the mesh's ``(tree, local lists)``); the body must not
+    change either in place, and must run on their device's current
     stream."""
 
     def __init__(self, body):
@@ -97,11 +174,29 @@ class StepGraph:
         self.capture_seconds = 0.0  # their wall time, warm-ups included
         self.replays = 0
         self._key = None
-        self._graph = None
+        self._segments = []        # the step's graphs, in capture order
+        self._cuts = []            # (fn, input, output buffer) after each
+                                   # segment but the last
+        self._pool = None          # the segments' one memory pool
+        self._open = None          # the segment being captured
         self._state = None         # the graph's (pos, vel, acc)
         self._frozen = None        # the graph's copy of the frozen tree
         self._frozen_src = None    # the tree object copied in last
         self._per_replay = []      # (obj, attr, what one replay adds)
+
+    @property
+    def segments(self) -> int:
+        """Graphs a replayed step runs (its collectives + 1; 0 before the
+        first capture)."""
+        return len(self._segments)
+
+    def stale(self, state, frozen, static=()) -> bool:
+        """Whether :meth:`run` with these arguments would capture first."""
+        return self._key_of(state, frozen, static) != self._key
+
+    @staticmethod
+    def _key_of(state, frozen, static) -> tuple:
+        return (tuple(static), _spec(tuple(state)), _spec(frozen))
 
     def run(self, state, frozen, k: int, static=()):
         """`k` steps from `state` against `frozen` by replays of the
@@ -110,15 +205,19 @@ class StepGraph:
         if state[0].device.type != "cuda":
             raise ValueError(f"CUDA graphs need CUDA tensors, got "
                              f"{state[0].device}")
-        key = (tuple(static), _spec(state), _spec(frozen))
+        key = self._key_of(state, frozen, static)
         if key != self._key:
             self._capture(state, frozen, key)
         elif frozen is not self._frozen_src:
-            _copy_into(self._frozen, frozen)
+            _copy_into(_leaves(self._frozen), _leaves(frozen))
             self._frozen_src = frozen
         _copy_into(self._state, state)
         for _ in range(k):
-            self._graph.replay()
+            for i, graph in enumerate(self._segments):
+                graph.replay()
+                if i < len(self._cuts):
+                    fn, x, out = self._cuts[i]
+                    out.copy_(fn(x))
         self.replays += k
         for obj, attr, d in self._per_replay:
             setattr(obj, attr, getattr(obj, attr) + d * k)
@@ -129,34 +228,82 @@ class StepGraph:
         self.release()
         dev = state[0].device
         st = tuple(x.clone() for x in state)
-        fz = _like(frozen, (x.clone() for x in frozen))
+        fz = _rebuild(frozen, (x.clone() for x in _leaves(frozen)))
         counters = list(_counters)
         before = _read_counters(counters)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             # the warm-up: every lazy initialisation, on scratch copies
+            # (a mesh body's collectives run for real)
             _copy_into(st, self.body(_like(state, st), fz))
         torch.cuda.current_stream(dev).wait_stream(side)
         warm = _read_counters(counters)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
-            _copy_into(st, self.body(_like(state, st), fz))
+        # what torch.cuda.graph does before a capture: free what can be
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        self._pool = torch.cuda.graph_pool_handle()
+        _capturing.graph = self
+        with torch.cuda.stream(side):
+            try:
+                self._begin()
+                _copy_into(st, self.body(_like(state, st), fz))
+                self._end()
+            except BaseException:
+                self._abort()     # on the capturing stream, as it must be
+                raise
+            finally:
+                _capturing.graph = None
         after = _read_counters(counters)
         self._per_replay = [(o, a, n1 - n0) for (o, a), n0, n1
                             in zip(counters, warm, after)]
         for (obj, attr), n in zip(counters, before):
             setattr(obj, attr, n)
-        self._graph, self._state, self._frozen = graph, st, fz
+        self._state, self._frozen = st, fz
         self._frozen_src, self._key = frozen, key
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
 
+    def _begin(self) -> None:
+        """Begin the next segment, in the step's pool."""
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self._pool,
+                            capture_error_mode="thread_local")
+        self._segments.append(graph)
+        self._open = graph
+
+    def _end(self) -> None:
+        graph, self._open = self._open, None
+        graph.capture_end()
+
+    def _cut(self, fn, x, out_shape, out_dtype) -> torch.Tensor:
+        """A collective met while capturing: see :func:`collective`."""
+        self._end()
+        out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
+        self._cuts.append((fn, x, out))
+        self._begin()
+        return out
+
+    def _abort(self) -> None:
+        """After a failed capture: end the open segment, so that the stream
+        leaves capture mode, and free everything captured."""
+        if self._open is not None:
+            try:
+                self._end()
+            except RuntimeError:
+                pass           # the capture's own error is the one raised
+        self.release()
+
     def release(self) -> None:
-        """Free the graph, its memory pool and the static buffers (the next
-        run captures again)."""
-        if self._graph is not None:
-            self._graph.reset()
-        self._graph = self._state = self._frozen = None
+        """Free every segment, their memory pool, the collectives' buffers
+        and the static buffers, all together (the next run captures
+        again)."""
+        if self._cuts:
+            # the buffers were last written on the replaying stream
+            torch.cuda.synchronize(self._cuts[0][2].device)
+        for graph in self._segments:
+            graph.reset()
+        self._segments, self._cuts = [], []
+        self._pool = self._open = None
+        self._state = self._frozen = None
         self._frozen_src = self._key = None

@@ -10,7 +10,9 @@ conftest:
 Two ranks share ``cuda:0`` (``share_device=True``: gloo, collectives staged
 through host memory); one rank on ``cuda:0`` runs the NCCL branch.  The
 sharded near field launches the Hopper P2P kernel, the sharded direct force
-the direct kernel's separate-targets entry.
+the direct kernel's separate-targets entry.  The mesh-mode Simulator runs
+its step as CUDA graphs cut at the collectives, held against
+``CO_CUDA_GRAPHS=0`` with the bound of chip_smoke.py's phase 16.
 """
 
 import numpy as np
@@ -132,3 +134,53 @@ def test_dryrun_two_ranks_share_the_card(cuda):
     k = torch.cuda.device_count()
     with pytest.raises(RuntimeError, match=f"only {k} devices visible"):
         graft_entry.dryrun_multichip(k + 1)
+
+
+@pytest.mark.parametrize("ndev,kw", [(2, SHARED), (1, {})],
+                         ids=["2_shared_gloo", "1_nccl"])
+def test_mesh_simulator_graphs_against_eager(cuda, ndev, kw):
+    """The mesh-mode Simulator over 3 windows of 3 steps (a priming
+    refresh, an adopted background rebuild), twice eagerly and once with
+    graphs from one start: graphs within max(2 x eager against eager,
+    1e-6) of max|pos|; every rank captured, as often as the others, with
+    one segment more than the collectives of a step; P2P launches == force
+    evaluations on every rank in both modes."""
+    pos, vel = ID.init_gaussian(N, X_STD, X_STD)
+    kw_cfg = dict(CFG, tree_steps=3, tree_async=True)
+    runs = PM.spawn(W.mesh_graph_modes, ndev, kw_cfg, pos, vel, 3,
+                    [(False, None), (False, None), (True, None)], **kw)
+    evals = 1 + 3 * 3
+    for r in runs:
+        assert r["states_equal"]
+        assert r["rebuilds"] == {"sync_refresh": 1, "adopt_full": 1}
+        assert [row[2] for row in r["per_rank"]] == [evals] * ndev
+    graphs = runs[2]["per_rank"]
+    assert all(row[0] >= 1 and row[0] == graphs[0][0] for row in graphs)
+    # all_gather, all_reduce_sum, a ring_shift a halo hop: 2 segments more
+    assert all(row[1] >= 3 for row in graphs)
+    assert all(row[:2] == [0, 0] for r in runs[:2] for row in r["per_rank"])
+    ref = runs[0]["pos"]
+    ee = np.abs(runs[1]["pos"] - ref).max() / np.abs(ref).max()
+    ge = np.abs(runs[2]["pos"] - ref).max() / np.abs(ref).max()
+    assert ge <= max(2 * ee, 1e-6), (ge, ee)
+
+
+def test_mesh_recapture_when_one_rank_grows(cuda):
+    """Two ranks sharing the card; rank 0 alone raises its near-field
+    degree capacity after the first window, so the next adoption widens
+    its col2d and changes its capture key only: both ranks capture again
+    (as often as each other, once more than without the growth), and the
+    run stays within 1e-5 of max|pos| of the eager run with the same
+    growth."""
+    pos, vel = ID.init_gaussian(N, X_STD, X_STD, seed=1)
+    kw_cfg = dict(CFG, tree_steps=3, tree_async=True)
+    runs = PM.spawn(W.mesh_graph_modes, 2, kw_cfg, pos, vel, 3,
+                    [(True, None), (True, 0), (False, 0)], **SHARED)
+    plain, grown, eager = (r["per_rank"] for r in runs)
+    # rank 0's col2d only
+    assert grown[0][3] == plain[0][3] + 128 and grown[1][3] == plain[1][3]
+    assert plain[0][0] == plain[1][0] and grown[0][0] == grown[1][0]
+    assert grown[0][0] == plain[0][0] + 1
+    assert all(row[2] == 10 for row in grown + eager)
+    ref = runs[2]["pos"]
+    assert np.abs(runs[1]["pos"] - ref).max() / np.abs(ref).max() <= 1e-5

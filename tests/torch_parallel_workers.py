@@ -263,3 +263,176 @@ def teardown(mesh, steps):
     finally:
         sim.close()
     return bool(torch.isfinite(st.pos).all())
+
+
+# the collectives by the code a segment record carries for them
+CUT_CODES = {"all_gather": 1, "all_reduce_sum": 2, "ring_shift": 3}
+
+
+def _record_step(mesh, rec, fn):
+    """Run `fn` with every ATen op recorded into `rec` (the capture lint's
+    recorder) and every collective made a cut: the ops between two
+    collectives form a segment, and a collective's own ops (its staging)
+    are run unrecorded, as a replay runs them between two graphs.
+    Returns (segments: list of op lists, collective names in order)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    from coulomb_oscillators_tpu_torch.utils import graphs
+    segments, cuts = [[]], []
+    real = graphs.collective
+
+    def cut(f, x, out_shape, out_dtype=None):
+        before = dict(mesh.calls)
+        with _disable_current_modes():
+            out = real(f, x, out_shape, out_dtype)
+        segments[-1].extend(rec.ops)
+        rec.ops.clear()
+        segments.append([])
+        cuts.extend(k for k in mesh.calls
+                    if mesh.calls[k] != before.get(k, 0))
+        return out
+
+    graphs.collective = cut
+    try:
+        with rec:
+            fn()
+    finally:
+        graphs.collective = real
+    segments[-1].extend(rec.ops)
+    rec.ops.clear()
+    return segments, cuts
+
+
+def _mesh_lint_case(mesh, engine, n, dim):
+    """One engine's mesh-mode Simulator under the lint's recorder: steps
+    1 and 2 of a window, then a step after the pipeline's priming refresh
+    and one after an adopted background re-sort.  Returns this rank's
+    record."""
+    from test_torch_capture_lint import _Recorder
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+    x_std = (0.003, 0.001, 0.01)[:dim]
+    pos, vel = ID.init_gaussian(n, x_std, x_std, dim=dim, seed=3)
+    cfg = SimConfig(dim=dim, fmm_order=3, tree_radius=2.0, tree_steps=3,
+                    omega0=(1.0,) * dim, tree_async=True)
+    sim = Simulator(cfg, n, engine=engine, mesh=mesh)
+    rec = _Recorder()
+    try:
+        sim.init_acc(particle_state_from_numpy(pos, vel, device=mesh.device))
+        sim.advance_padded(1)                          # warm-up
+        steps = [_record_step(mesh, rec, lambda: sim.advance_padded(1)),
+                 _record_step(mesh, rec, lambda: sim.advance_padded(1))]
+        sim.start_window()                             # priming refresh
+        steps.append(_record_step(mesh, rec, lambda: sim.advance_padded(1)))
+        sim.advance_padded(2)
+        sim.start_window()                             # adopted re-sort
+        steps.append(_record_step(mesh, rec, lambda: sim.advance_padded(1)))
+        halo = sim._pfrozen[1].hops
+        out = dict(rebuilds=dict(sim.rebuilds), bad=list(rec.bad),
+                   halo=halo, cuts=[c for _, c in steps],
+                   same_ops=[s == steps[0][0] for s, _ in steps[1:]],
+                   segments=[len(s) for s, _ in steps],
+                   eager=sim.graph is None)
+    finally:
+        sim.close()
+    codes = torch.zeros(16, dtype=torch.int64)
+    for i, c in enumerate(out["cuts"][0]):
+        codes[i] = CUT_CODES[c]
+    out["cuts_equal_across_ranks"] = _all_equal(mesh, codes)
+    return out
+
+
+def _entries_case(mesh, dim):
+    """The rank's sharded near field over its padded entry list against
+    the plain sum over its CSR, on the halo blocks of a beam."""
+    from coulomb_oscillators_tpu_torch.parallel.fmm_pshard import (
+        PShardedKdFmm)
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+    n = 2048
+    cfg = SimConfig(dim=dim, fmm_order=3, tree_radius=2.0,
+                    omega0=(1.0,) * dim)
+    x_std = (0.003, 0.001, 0.01)[:dim]
+    pos, _ = ID.init_gaussian(n, x_std, x_std, dim=dim, seed=4)
+    eng = KdFmmEngine(cfg, n)
+    fs = eng.build(torch.from_numpy(pos))
+    ps = PShardedKdFmm(eng, mesh)
+    lists, hops = shard_pair_lists(eng, fs, mesh.ndev)
+    loc = ps.localize(lists, hops, "cpu")
+    cat = ps.halo_blocks(ps.shard_padded(eng.pad_array(
+        torch.from_numpy(pos), fs, fill=FAR)), loc)
+    csr = p2p_cuda.p2p_plain(cat, loc.row_ptr, loc.col2d, eng.nsub,
+                             cfg.eps2)
+    lst = p2p_cuda.p2p_plain_entries(cat, loc.p2p_tgt, loc.p2p_src,
+                                     eng.nsub, cfg.eps2)
+    pads = int((loc.p2p_tgt == loc.col2d.shape[0]).sum())
+    ok = (torch.equal(lst, csr)
+          and torch.equal(ps.near_padded(cat, loc), csr[:ps.Glb])
+          and pads > 0 and bool(torch.isfinite(csr).all()))
+    return bool(mesh.all_gather(torch.tensor([ok])).all())
+
+
+def mesh_graph_scenarios(mesh, cases):
+    """What tests/test_torch_mesh_graphs.py asks of one group of CPU
+    ranks: per case of `cases` ({name: (engine, n, dim)}) the lint record
+    of the mesh step; the rank-consistent re-capture vote; the entries
+    form of the near field against the CSR form in dims 2 and 3."""
+    from coulomb_oscillators_tpu_torch.simulate import any_rank
+    from coulomb_oscillators_tpu_torch.utils.graphs import StepGraph
+    torch.set_num_threads(1)
+    out = {name: _mesh_lint_case(mesh, *args)
+           for name, args in cases.items()}
+    # the vote: a key that changed on one rank only (its col2d grew, as
+    # an adoption with a higher degree does) is a re-capture everywhere
+    st = ParticleState(*(torch.zeros(4, 3) for _ in range(3)))
+    loc = (torch.zeros(6, 128, dtype=torch.int32), (1,))
+    grown = (torch.zeros(6, 256 if mesh.rank == 0 else 128,
+                         dtype=torch.int32), (1,))
+    key = StepGraph._key_of(st, loc, ())
+    changed = StepGraph._key_of(st, grown, ()) != key
+    unchanged = StepGraph._key_of(st, (loc[0].clone(), (1,)), ()) != key
+    votes = [any_rank(mesh, changed), any_rank(mesh, unchanged),
+             any_rank(mesh, mesh.rank == 1)]
+    out["votes"] = votes
+    out["votes_equal"] = _all_equal(mesh, torch.tensor(votes))
+    out["changed_here"] = _all_equal(mesh, torch.tensor([changed]))
+    out["entries"] = {dim: _entries_case(mesh, dim) for dim in (2, 3)}
+    return out
+
+
+def mesh_graph_modes(mesh, cfg_kw, pos, vel, windows, runs):
+    """runs: [(graphs on, rank that grows its col2d capacity or None)]:
+    per run the mesh-mode Simulator from init_acc over `windows` windows
+    of tree_steps with ``CO_CUDA_GRAPHS`` 1 or 0.  The growing rank alone
+    raises its near-field degree capacity after the first window, so the
+    next adoption changes its capture key only.  Per run: rank 0's
+    positions, and every rank's captures, segments, P2P launches and
+    col2d width; whether all ranks returned the same state."""
+    import os
+    torch.set_num_threads(1)
+    cfg = SimConfig(**cfg_kw)
+    out = []
+    for graphs_on, grow_rank in runs:
+        os.environ["CO_CUDA_GRAPHS"] = "1" if graphs_on else "0"
+        try:
+            sim = Simulator(cfg, pos.shape[0], engine="fmm3_kd", mesh=mesh)
+        finally:
+            del os.environ["CO_CUDA_GRAPHS"]
+        before = p2p_cuda.launches
+        try:
+            sim.init_acc(particle_state_from_numpy(pos, vel,
+                                                   device=mesh.device))
+            for w in range(windows):
+                sim.advance_padded(cfg.tree_steps)
+                if w == 0 and grow_rank == mesh.rank:
+                    sim._fmm._pshard_caps["dmax"] += 128
+            st = sim.current_state()
+            g = sim.graph
+            row = [g.captures if g else 0, g.segments if g else 0,
+                   p2p_cuda.launches - before,
+                   sim._pfrozen[1].col2d.shape[1]]
+        finally:
+            sim.close()
+        rows = mesh.all_gather(torch.tensor([row], device=mesh.device))
+        out.append(dict(pos=_np(st.pos), per_rank=_np(rows).tolist(),
+                        states_equal=_all_equal(
+                            mesh, torch.cat([st.pos, st.vel, st.acc])),
+                        rebuilds=dict(sim.rebuilds)))
+    return out
