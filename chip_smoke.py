@@ -129,7 +129,23 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      equal the production engine's last_counts of a margin-free build of
      the same beam; sortmode_probe (p=6, r=1.67): kd_native and kd_device
      <= 1e-3, morton <= MORTON_TOL (2e-3: its elongated leaves), one P2P
-     launch each.
+     launch each;
+ 18. ladder and drift: the CLI's -accuracy 1e-3 with -chips 1 (NCCL, one
+     rank) at N=30001, fmm3_kd, 16 iterations: one (p, r) search, in this
+     process before the rank starts ("Best parameters" printed once, by
+     this process and the rank together), its seconds, choice and error
+     printed; the snapshots named and sized as those of the single-device
+     run of the chosen (p, r), within 1e-4 of max|pos|; -chips 2
+     -accuracy refused with -1 on one card.  Ladder rows 1 (direct,
+     N=4096) and 3a (kd, N=1M, p=3, r=1.7) through scripts.ladder.run,
+     with geometry refresh and then with CO_GEOM_REFRESH=0: finite, the
+     mode in the row, 1-2 step-graph captures, the direct and P2P
+     kernels' launches == the force evaluations each row made; one JSON
+     line a row with the card.  The north-star drift artifact
+     (scripts.energy_drift.artifact: N=30001, p=6, r=2.5, dt=2e-5, its
+     stiffening ladder) cut to 2000 steps: max drift <= 1e-6, P2P launches
+     == the force evaluations of its rungs; the first rung's drift and
+     whether it stiffened printed.
 
 Any failure raises: the script then exits non-zero without its last line.
 Usage, from the repository root:  python3 chip_smoke.py
@@ -1326,6 +1342,167 @@ def _phase_probes(dev, smi, torch):
     return launches
 
 
+def _fd1_captured(fn):
+    """Run fn() with file descriptor 1 sent to a temporary file, so what
+    this process and the ranks it spawns print is read back; the text is
+    printed afterwards.  Returns (fn's result, the text)."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile("w+") as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            out = fn()
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        f.seek(0)
+        text = f.read()
+    sys.stdout.write(text)
+    return out, text
+
+
+def _phase_ladder_drift(dev, smi, torch):
+    """Phase 18: the CLI's -accuracy with -chips 1, ladder rows 1 and 3a in
+    both geometry modes, and the north-star drift artifact.  Returns the
+    P2P and direct kernels' launches by path."""
+    import numpy as np
+    from coulomb_oscillators_tpu_torch import cli
+    from coulomb_oscillators_tpu_torch.models import integrators as I
+    from coulomb_oscillators_tpu_torch.ops import direct as D
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.scripts import energy_drift, ladder
+    from coulomb_oscillators_tpu_torch.utils import io as SIO
+
+    # -accuracy with -chips 1 (NCCL, one rank): one search, in this process
+    # before the rank starts; the rank runs its choice without searching
+    tunes = []
+    search = cli.autotune
+
+    def timed_search(*a):
+        t = time.perf_counter()
+        out = search(*a)
+        tunes.append((time.perf_counter() - t,) + tuple(out))
+        return out
+
+    base = ["-n", str(N_CLI), "-iters", "16", "-steps", "8", "-engine",
+            "fmm3_kd"]
+    cli.autotune = timed_search
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tc = time.perf_counter()
+            rc, text = _fd1_captured(lambda: cli.main(
+                ["-chips", "1", "-accuracy", "1e-3"] + base
+                + ["-o", os.path.join(tmp, "tuned")]))
+            tc = time.perf_counter() - tc
+            _require(rc == 0, f"cli -chips 1 -accuracy 1e-3: rc {rc}")
+            _require(len(tunes) == 1 and tunes[0][1] is not None,
+                     f"one search in this process: {len(tunes)}")
+            _require(text.count("Best parameters") == 1, "'Best parameters' "
+                     f"printed {text.count('Best parameters')} times (once)")
+            tune_s, cfg, err = tunes[0]
+            _require(cfg.coll and cfg.accuracy == 1e-3,
+                     f"tuned config {cfg}")
+            # the single-device run of the tuned (p, r)
+            one = os.path.join(tmp, "one")
+            _require(cli.main(base + ["-p", str(cfg.fmm_order), "-r",
+                                      str(cfg.tree_radius), "-o", one]) == 0,
+                     "cli single-device run of the tuned (p, r)")
+            names = sorted(f for f in os.listdir(one) if f.endswith(".bin"))
+            got = sorted(f for f in os.listdir(os.path.join(tmp, "tuned"))
+                         if f.endswith(".bin"))
+            _require(got == names == sorted(f"out{i}_0.000500.bin"
+                                            for i in (0, 8, 16)),
+                     f"snapshots {got} == {names}")
+            dpos = 0.0
+            for f in names:
+                a = os.path.join(tmp, "tuned", f)
+                _require(os.path.getsize(a) == os.path.getsize(
+                    os.path.join(one, f)) == 2 * N_CLI * 3 * 4, f"{f} bytes")
+                p1, _ = SIO.read_state(os.path.join(one, f), dim=3,
+                                       dtype=np.float32)
+                p2, v2 = SIO.read_state(a, dim=3, dtype=np.float32)
+                _require(bool(np.isfinite(p2).all() and np.isfinite(v2).all()),
+                         f"{f} finite")
+                dpos = max(dpos, float(np.abs(p2 - p1).max()
+                                       / np.abs(p1).max()))
+            _require(dpos <= 1e-4, f"-chips 1 -accuracy vs the single-device "
+                     f"run of its (p, r): {dpos:.3e} <= 1e-4")
+    finally:
+        cli.autotune = search
+    _require(cli.main(["-n", "64", "-chips", "2", "-engine", "fmm3_kd",
+                       "-accuracy", "1e-3"]) == -1,
+             "cli -chips 2 -accuracy on one card returns -1")
+    print(f"cli -chips 1 -accuracy 1e-3 N={N_CLI} on {smi}: search "
+          f"{tune_s:.3f} s (42 candidates, one in this process, none on "
+          f"the rank), chosen p={cfg.fmm_order} r={cfg.tree_radius} error "
+          f"{err:.3e}; whole run {tc:.3f} s; snapshots {got} as the "
+          f"single-device run's, max|dpos|/max|pos| {dpos:.3e}; -chips 2 "
+          f"refused", flush=True)
+
+    # ladder rows 1 and 3a at their published sizes, geometry refresh on
+    # and then off (CO_GEOM_REFRESH=0, the twin's freeze-and-drift mode)
+    rows = [r for r in ladder.configs({1, 3}) if r[0] != ladder.OCTREE_ROW]
+    launches = {"ladder": {"p2p": 0, "direct": 0}}
+    saved = os.environ.pop("CO_GEOM_REFRESH", None)
+    try:
+        for mode in ("1", "0"):
+            os.environ["CO_GEOM_REFRESH"] = mode
+            for tag, cfg, n, engine, kw in rows:
+                torch.cuda.synchronize()
+                p2p_cuda.launches = 0
+                D.launches = 0
+                row = ladder.run(tag, cfg, n, engine, dev, **kw)
+                torch.cuda.synchronize()
+                # init_acc, then every step the row ran
+                evals = 1 + row["steps_run"] * I.FORCE_EVALS[cfg.integrator]
+                seen = {"p2p": p2p_cuda.launches, "direct": D.launches}
+                want = ({"p2p": 0, "direct": evals} if engine == "direct"
+                        else {"p2p": evals, "direct": 0})
+                print(json.dumps(dict(row, card=smi, launches=seen)),
+                      flush=True)
+                print(f"ladder {tag} geom_refresh={row['geom_refresh']} on "
+                      f"{smi}: {row['sec_per_step']:.6f} s/step, captures "
+                      f"{row['captures']}", flush=True)
+                _require("error" not in row and row["finite"]
+                         and 0 < row["sec_per_step"] < float("inf"),
+                         f"ladder {tag}: finite")
+                _require(row["geom_refresh"] is (mode == "1"),
+                         f"ladder {tag}: geom_refresh {row['geom_refresh']}")
+                _require(seen == want, f"ladder {tag}: launches {seen} == "
+                         f"{want} ({evals} force evaluations)")
+                _require(1 <= row["captures"] <= 2, f"ladder {tag}: "
+                         f"captures {row['captures']} in 1-2")
+                for k in seen:
+                    launches["ladder"][k] += seen[k]
+    finally:
+        if saved is None:
+            os.environ.pop("CO_GEOM_REFRESH", None)
+        else:
+            os.environ["CO_GEOM_REFRESH"] = saved
+
+    # the north-star drift artifact, cut to 2000 steps
+    steps = 2000
+    torch.cuda.synchronize()
+    p2p_cuda.launches = 0
+    res = energy_drift.artifact(steps=steps)
+    torch.cuda.synchronize()
+    rungs = res["rung_max_drifts"]
+    launches["drift_artifact"] = p2p_cuda.launches
+    print(json.dumps(dict(res, card=smi, p2p_launches=p2p_cuda.launches)),
+          flush=True)
+    print(f"drift artifact on {smi}: {steps} steps, first rung max drift "
+          f"{rungs[0]:.3e} ({res['config']}), "
+          f"{'stiffened' if len(rungs) > 1 else 'not stiffened'}; final max "
+          f"drift {res['max_drift']:.3e} (bound {DRIFT_TOL})", flush=True)
+    _require(res["pass"] and res["max_drift"] <= DRIFT_TOL,
+             f"drift artifact {res['max_drift']:.3e} <= {DRIFT_TOL}")
+    _require(p2p_cuda.launches == len(rungs) * (1 + steps),
+             f"drift artifact: {p2p_cuda.launches} P2P launches == "
+             f"{len(rungs)} x {1 + steps} force evaluations")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1714,6 +1891,11 @@ def main() -> int:
     probe_launches = _phase_probes(dev, smi, torch)
     _phase("probes", t0)
 
+    # ---- 18. -accuracy with -chips, the ladder and the drift artifact --
+    t0 = time.perf_counter()
+    ld_launches = _phase_ladder_drift(dev, smi, torch)
+    _phase("ladder and drift", t0)
+
     row, drow = p2p_rows[0], direct_rows[3, N_CLI]
     # no single PyTorch call computes a masked leaf-pair sum or an
     # all-pairs softened Coulomb sum, so library_ms is null
@@ -1727,7 +1909,10 @@ def main() -> int:
          "launches_by_path": {"simulator": p2p_launches,
                               "bench": bench_launches,
                               "profile": profile_launches,
-                              "probes": probe_launches["p2p"], **mesh_p2p},
+                              "probes": probe_launches["p2p"],
+                              "ladder": ld_launches["ladder"]["p2p"],
+                              "drift_artifact": ld_launches["drift_artifact"],
+                              **mesh_p2p},
          "max_abs_err": row["max_abs_err"],
          "max_abs_ref": row["max_abs_ref"],
          "max_rel_err": row["max_rel_err"], "ms": row["ms"],
@@ -1751,6 +1936,7 @@ def main() -> int:
          "launches": direct_launches,
          "launches_by_path": {"cli": direct_launches,
                               "probes": probe_launches["direct"],
+                              "ladder": ld_launches["ladder"]["direct"],
                               **mesh_direct},
          "targets_entry": ts_row, "max_abs_err": drow["max_abs_err"],
          "max_abs_ref": drow["max_abs_ref"],

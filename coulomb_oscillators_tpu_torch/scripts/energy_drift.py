@@ -2,15 +2,18 @@
 (BASELINE.md: target <= 1e-6), on one CUDA card.
 
 Twin of ``scripts/energy_drift.py`` (``run_one``, ``sweep``,
-``midscale``).  The Hamiltonian is ``ops.energy.total_energy_kahan``
-(device Kahan pair rows + a float64 host reduction); above n = 200k the
-O(N^2) rows are impractical and the O(N) kd-FMM potential is used instead
+``midscale``, and ``artifact`` for its ``emit_artifact``).  The
+Hamiltonian is ``ops.energy.total_energy_kahan`` (device Kahan pair rows
++ a float64 host reduction); above n = 200k the O(N^2) rows are
+impractical and the O(N) kd-FMM potential is used instead
 (diagnostic-grade).  Always quote drift with dt.
 
 Usage:  python -m coulomb_oscillators_tpu_torch.scripts.energy_drift \\
             [n] [steps] [engine] [p] [r] [dt]
         ... energy_drift sweep [steps]       # the drift ladder, n=30001
         ... energy_drift midscale [steps] [--out FILE]
+        ... energy_drift artifact [steps] [--out FILE]   # the north star,
+            n=30001, 10k steps by default; writes a file only with --out
 """
 
 from __future__ import annotations
@@ -123,6 +126,47 @@ def midscale(steps=2000, device=None) -> dict:
             "psteps_per_s": psteps * 1e6}
 
 
+# the north-star run's stiffening ladder (scripts/energy_drift.py:
+# emit_artifact): accuracy=1e-6 auto-stiffens the sub-leaf MAC (boost 2.0);
+# if the drift still exceeds the bound, an explicit boost of 4.0 (about
+# block granularity) takes over
+ARTIFACT_BOUND = 1e-6
+ARTIFACT_LADDER = ({"accuracy": 1e-6},
+                   {"accuracy": 1e-6, "mac_sub_boost": 4.0})
+
+
+def artifact(steps=10_000, n=30001, device=None) -> dict:
+    """The north-star drift: n=30001, fmm3_kd p=6, r=2.5, dt=2e-5,
+    leapfrog, over `steps`, stiffened as ARTIFACT_LADDER says until the
+    maximum drift is within ARTIFACT_BOUND or the ladder ends; passes at
+    max drift <= ARTIFACT_BOUND.  `rung_max_drifts` holds each rung's."""
+    from coulomb_oscillators_tpu_torch.scripts._common import device_info
+    device = torch.device("cuda", 0) if device is None else device
+    p, r, dt = 6, 2.5, 2e-5
+    rungs = []
+    for i, kw in enumerate(ARTIFACT_LADDER):
+        drift, max_drift, psteps = run_one(n, steps, "fmm3_kd", p, r, dt,
+                                           quiet=True, device=device, **kw)
+        rungs.append(max_drift)
+        if max_drift <= ARTIFACT_BOUND or i == len(ARTIFACT_LADDER) - 1:
+            break
+        print(f"drift {max_drift:.3e} > 1e-6 at {kw}; stiffening",
+              flush=True)
+    return {"metric": "rel_energy_drift", "value": drift,
+            "max_drift": max_drift, "steps": steps,
+            "config": {"n": n, "engine": "fmm3_kd", "p": p, "r": r,
+                       "dt": dt, "integrator": "leapfrog", **kw},
+            "measurement": "coulomb_oscillators_tpu_torch ops.energy."
+                           "total_energy_kahan (device Kahan pair rows + "
+                           "a float64 host reduction)",
+            "note": "north star <= 1e-6 at 10k steps; at the reference "
+                    "default dt=5e-4 drift is encounter-dominated for any "
+                    "engine (see the sweep)",
+            "psteps_per_s": psteps * 1e6, "bound": ARTIFACT_BOUND,
+            "pass": bool(max_drift <= ARTIFACT_BOUND),
+            "rung_max_drifts": rungs, **device_info(device)}
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     out = None
@@ -134,8 +178,11 @@ def main(argv=None) -> int:
         print("energy_drift: no CUDA device; this script measures the card",
               file=sys.stderr)
         return 1
-    if argv and argv[0] == "midscale":
-        res = midscale(steps=int(argv[1]) if len(argv) > 1 else 2000)
+    if argv and argv[0] in ("midscale", "artifact"):
+        if argv[0] == "midscale":
+            res = midscale(steps=int(argv[1]) if len(argv) > 1 else 2000)
+        else:
+            res = artifact(steps=int(argv[1]) if len(argv) > 1 else 10_000)
         print(json.dumps(res))
         if out:
             with open(out, "w") as f:

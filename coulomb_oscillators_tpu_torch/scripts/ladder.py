@@ -12,17 +12,26 @@ Twin of ``scripts/ladder.py``:
 
 Each row is min over 2 timed repeats of `steps` steps after two 2-step
 warm-up runs, timed on the host clock around work that ends in
-``torch.cuda.synchronize()``, and carries the card's name and power limit.
+``torch.cuda.synchronize()``, and carries the card's name and power limit,
+the step graph's captures and the peak device memory.
+
+``CO_GEOM_REFRESH=0`` runs the reference-equivalent freeze-and-drift mode
+(``geom_refresh=False``: the expansion geometry stays frozen with the
+lists for a whole window), as in the twin; each row says which mode ran.
+If config 3b raises, its row records the error and the ladder goes on, as
+in the twin; any other config that raises ends the run.
 
 Usage:  python -m coulomb_oscillators_tpu_torch.scripts.ladder [configs]
-        [--out FILE]   (default configs: 1 2 3 4; --out writes the rows as
-        one JSON artifact)
+        [--out FILE]   (default configs: 1 2 3 4; --out, or else the
+        CO_LADDER_OUT environment variable, names a JSON artifact that is
+        rewritten after every row; with neither, nothing is written)
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -58,11 +67,17 @@ def _state(config, n, device, uniform=False):
 def run(tag, config, n, engine, device, steps=12, uniform=False,
         repeats=2) -> dict:
     """One ladder row: s/step of `engine` at `n` on `device`."""
+    from coulomb_oscillators_tpu_torch.scripts._common import graph_info
     from coulomb_oscillators_tpu_torch.scripts._common import sync as _sync
     from coulomb_oscillators_tpu_torch.simulate import Simulator
 
+    if os.environ.get("CO_GEOM_REFRESH") == "0":
+        config = config.replace(geom_refresh=False)
     t_setup = time.perf_counter()
     state = _state(config, n, device, uniform)
+    cuda = state.pos.device.type == "cuda"
+    if cuda:        # the peak from here on, the state included
+        torch.cuda.reset_peak_memory_stats(device)
     sim = Simulator(config, n, engine=engine)
     try:
         state = sim.init_acc(state)
@@ -82,8 +97,18 @@ def run(tag, config, n, engine, device, steps=12, uniform=False,
     return {"config": tag, "engine": engine, "n": n, "sec_per_step": dt,
             "particle_steps_per_s": n / dt, "integrator": config.integrator,
             "p": config.fmm_order, "r": config.tree_radius,
-            "tree_steps": config.tree_steps, "setup_s": setup_s,
-            "finite": finite}
+            "tree_steps": config.tree_steps,
+            "geom_refresh": config.geom_refresh,
+            "steps_run": 4 + repeats * steps, "setup_s": setup_s,
+            "finite": finite,
+            **graph_info(sim),
+            "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                         if cuda else None)}
+
+
+# the one row whose failure is recorded instead of ending the run (the
+# twin's scripts/ladder.py:120-131)
+OCTREE_ROW = "3b_octree_traceless_N1M_uniform"
 
 
 def configs(which):
@@ -101,9 +126,8 @@ def configs(which):
     if 3 in which:
         out.append(("3a_kd_N1M_beam", SimConfig(fmm_order=3, tree_radius=1.7),
                     1_000_000, "fmm3_kd", {}))
-        out.append(("3b_octree_traceless_N1M_uniform",
-                    SimConfig(fmm_order=3), 1_000_000, "fmm3_traceless",
-                    dict(steps=6, uniform=True)))
+        out.append((OCTREE_ROW, SimConfig(fmm_order=3), 1_000_000,
+                    "fmm3_traceless", dict(steps=6, uniform=True)))
     if 4 in which:
         out.append(("4_p8_forestruth_N100k",
                     SimConfig(fmm_order=8, tree_radius=2.0,
@@ -119,8 +143,9 @@ def configs(which):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("configs", nargs="*", type=int, default=[1, 2, 3, 4])
-    ap.add_argument("--out", default=None,
-                    help="write the rows to this JSON file")
+    ap.add_argument("--out", default=os.environ.get("CO_LADDER_OUT"),
+                    help="write the rows to this JSON file (default: the "
+                         "CO_LADDER_OUT environment variable)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ladder: no CUDA device; the ladder measures the card",
@@ -130,7 +155,12 @@ def main(argv=None) -> int:
     info = card()
     rows = []
     for tag, cfg, n, engine, kw in configs(set(args.configs)):
-        row = dict(run(tag, cfg, n, engine, device, **kw), **info)
+        try:
+            row = dict(run(tag, cfg, n, engine, device, **kw), **info)
+        except Exception as ex:  # octree needs quasi-uniform occupancy
+            if tag != OCTREE_ROW:
+                raise
+            row = {"config": tag, "error": repr(ex)[:200]}
         print(json.dumps(row), flush=True)
         rows.append(row)
         if args.out:

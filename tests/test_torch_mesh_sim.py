@@ -131,10 +131,109 @@ def test_cli_chips_beyond_the_visible_devices(tmp_path, capsys):
     assert f"-chips {k + 9}: only {k} devices visible" in \
         capsys.readouterr().out
     assert not out.exists()
-    # -accuracy cannot tune per rank
-    assert cli.main(["-cpu", "-n", "64", "-chips", "2", "-accuracy", "0.1",
-                     "-o", str(out)]) == -1
-    assert not out.exists()
+
+
+ACC_ARGS = ["-n", "1024", "-iters", "8", "-steps", "4", "-engine",
+            "fmm3_kd", "-accuracy", "0.05"]
+
+
+def _stub_autotune(calls, fail=False):
+    """A stand-in for the CLI's timed (p, r) search: records the process
+    that called it and returns one fixed candidate (or the failure), so
+    timing noise cannot pick another (p, r)."""
+    def tune(config, n, pos, engine, bound):
+        calls.append((os.getpid(), config.accuracy, bound))
+        if fail:
+            return None, None
+        return config.replace(fmm_order=4, tree_radius=2.0, coll=True), 0.01
+    return tune
+
+
+def _snapshots(path):
+    return {f: cio.read_state(str(path / f), dim=3, dtype=np.float32)
+            for f in sorted(os.listdir(path)) if f.endswith(".bin")}
+
+
+def _agree(got, want):
+    """The same snapshot names and sizes, positions within 1e-4 of
+    max|pos| (test_cli_chips_flag's bound), finite velocities."""
+    assert sorted(got) == sorted(want) and "out8_0.000500.bin" in got
+    for f, (p1, _) in want.items():
+        p2, v2 = got[f]
+        assert p2.shape == p1.shape == (1024, 3)
+        assert np.abs(p2 - p1).max() / np.abs(p1).max() <= 1e-4
+        assert np.isfinite(v2).all()
+
+
+def _port_run(monkeypatch, out, extra):
+    """The port's -cpu -accuracy 0.05 run with the stubbed search:
+    (snapshots, the search's calls)."""
+    calls = []
+    monkeypatch.setattr(cli, "autotune", _stub_autotune(calls))
+    assert cli.main(["-cpu"] + ACC_ARGS + extra + ["-o", str(out)]) == 0
+    return _snapshots(out), calls
+
+
+def test_cli_chips_accuracy(tmp_path, monkeypatch, capfd):
+    """-accuracy with -chips 2 on CPU ranks: one search, made in this
+    process before the ranks start; every rank runs its choice (the
+    snapshots equal the single-device -accuracy run's, which ran the same
+    candidate), and no rank searches again (rank 0 would print the real
+    search's progress line)."""
+    one, calls1 = _port_run(monkeypatch, tmp_path / "one", [])
+    capfd.readouterr()
+    two, calls2 = _port_run(monkeypatch, tmp_path / "two", ["-chips", "2"])
+    assert calls1 == calls2 == [(os.getpid(), 0.05, 0.05)]
+    assert "-accuracy 0.05 -chips 2" in (tmp_path / "two" / "args.txt"
+                                         ).read_text()
+    _agree(two, one)
+    out = capfd.readouterr().out
+    assert "0 4 8" in out                    # rank 0's output is read here
+    assert "Parameter optimization" not in out
+
+
+def test_cli_chips_accuracy_hands_every_tuned_value(monkeypatch):
+    """The ranks receive (p, r), the bound and the near field of the one
+    tune, and a mark that tells them not to tune."""
+    monkeypatch.setattr(cli, "autotune", _stub_autotune([]))
+    args = cli.build_parser().parse_args(
+        ["-cpu", "-p", "1", "-r", "1.11", "-ncoll"] + ACC_ARGS)
+    assert cli._tune_for_ranks(args)
+    assert (args.fmm_order, args.tree_radius, args.ncoll, args.accuracy,
+            args.tuned) == (4, 2.0, False, 0.05, True)
+
+
+def test_cli_chips_accuracy_matches_the_reference(tmp_path, monkeypatch):
+    """The reference CLI's -chips 2 -accuracy 0.05 run on the virtual CPU
+    devices (tests/test_fmm_pshard.py:176-183), its search stubbed to the
+    same candidate: the port's -chips 2 snapshots agree with it to 1e-4
+    of max|pos|."""
+    from coulomb_oscillators_tpu import cli as jcli
+    calls = []
+    monkeypatch.setattr(jcli, "autotune", _stub_autotune(calls))
+    ref = tmp_path / "ref"
+    assert jcli.main(ACC_ARGS + ["-chips", "2", "-o", str(ref)]) == 0
+    assert len(calls) == 1
+    two, _ = _port_run(monkeypatch, tmp_path / "two", ["-chips", "2"])
+    _agree(two, _snapshots(ref))
+
+
+def test_cli_chips_accuracy_failed(tmp_path, monkeypatch, capsys):
+    """No candidate meets the bound: the single-device path's message and
+    -1; no rank starts and nothing is written."""
+    from coulomb_oscillators_tpu_torch.parallel import mesh as PM
+
+    def no_spawn(*a, **k):
+        raise AssertionError("a rank started")
+
+    calls = []
+    monkeypatch.setattr(cli, "autotune", _stub_autotune(calls, fail=True))
+    monkeypatch.setattr(PM, "spawn", no_spawn)
+    out = tmp_path / "none"
+    assert cli.main(["-cpu", "-chips", "2"] + ACC_ARGS + ["-o", str(out)]) \
+        == -1
+    assert "Optimization failed!" in capsys.readouterr().out
+    assert len(calls) == 1 and not out.exists()
 
 
 def test_dryrun_multichip():

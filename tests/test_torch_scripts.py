@@ -1,10 +1,16 @@
 """The port's ladder and energy-drift scripts on the CPU at a tiny size:
 the ladder's configurations are the twin's, a row runs each engine kind,
-the drift of an exact-force run stays tiny, and both scripts refuse to
-measure without a card.
+the freeze-and-drift mode and the artifact file work as in the twin, the
+drift of an exact-force run stays tiny, the north-star artifact runs the
+twin's stiffening ladder, and both scripts refuse to measure without a
+card.
 """
 
+import importlib.util
+import json
 import math
+import os
+import sys
 
 import pytest
 import torch
@@ -49,6 +55,170 @@ def test_ladder_row_runs(engine, cfg, uniform):
         512 / row["sec_per_step"])
 
 
+@pytest.mark.parametrize("env,want", [(None, True), ("1", True),
+                                      ("0", False)])
+def test_ladder_geom_refresh_switch(monkeypatch, env, want):
+    """CO_GEOM_REFRESH=0 (read by the ladder alone, as in the twin's
+    scripts/ladder.py:47-48) reaches the Simulator's config, and the row
+    says which mode ran."""
+    from coulomb_oscillators_tpu_torch import simulate
+    if env is None:
+        monkeypatch.delenv("CO_GEOM_REFRESH", raising=False)
+    else:
+        monkeypatch.setenv("CO_GEOM_REFRESH", env)
+    seen = []
+
+    class Recording(simulate.Simulator):
+        def __init__(self, config, *a, **k):
+            seen.append(config.geom_refresh)
+            super().__init__(config, *a, **k)
+
+    monkeypatch.setattr(simulate, "Simulator", Recording)
+    cfg = SimConfig(fmm_order=3, tree_radius=2.0, tree_steps=2)
+    row = ladder.run("t", cfg, 512, "fmm3_kd", "cpu", steps=3, repeats=1)
+    assert seen == [want] and row["geom_refresh"] is want
+    assert row["steps_run"] == 2 + 2 + 3
+    assert row["finite"] and row["captures"] == 0 and row["peak_gib"] is None
+    assert cfg.geom_refresh                  # the caller's config is kept
+
+
+def _fake_ladder(monkeypatch, fail=None):
+    """main() without a card: a fake row per config, raising for the tag
+    `fail`; records the artifact's row count when each row starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(ladder, "card", lambda: {"device": "fake",
+                                                 "power_limit": "1 W"})
+    seen = []
+
+    def run(tag, config, n, engine, device, **kw):
+        out = os.environ.get("CO_LADDER_OUT") or "ladder_out.json"
+        seen.append((tag, len(json.load(open(out))["rows"])
+                     if os.path.exists(out) else 0))
+        if tag == fail:
+            raise RuntimeError(f"no room for {tag}")
+        return {"config": tag, "engine": engine, "n": n}
+
+    monkeypatch.setattr(ladder, "run", run)
+    return seen
+
+
+def test_ladder_octree_error_row(tmp_path, monkeypatch):
+    """A raise in config 3b gives the twin's error row and the ladder goes
+    on (scripts/ladder.py:120-131); a raise anywhere else ends the run."""
+    monkeypatch.chdir(tmp_path)
+    tag = ladder.OCTREE_ROW
+    seen = _fake_ladder(monkeypatch, fail=tag)
+    assert ladder.main(["3", "4", "--out", "ladder_out.json"]) == 0
+    rows = json.load(open("ladder_out.json"))["rows"]
+    ex = RuntimeError(f"no room for {tag}")
+    assert rows[1] == {"config": tag, "error": repr(ex)[:200]}
+    assert [r["config"] for r in rows] == [t for t, _ in seen] == [
+        "3a_kd_N1M_beam", tag, "4_p8_forestruth_N100k"]
+    _fake_ladder(monkeypatch, fail="3a_kd_N1M_beam")
+    with pytest.raises(RuntimeError, match="no room for 3a"):
+        ladder.main(["3"])
+
+
+@pytest.mark.parametrize("how", ["--out", "CO_LADDER_OUT", "neither"])
+def test_ladder_artifact_rewritten_after_each_row(tmp_path, monkeypatch,
+                                                  how):
+    """--out, or else CO_LADDER_OUT, names the artifact, rewritten after
+    every row; with neither nothing is written (never the twin's root
+    LADDER_r05.json)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("CO_LADDER_OUT", raising=False)
+    argv = ["1", "2", "4"]
+    if how == "--out":
+        argv += ["--out", "ladder_out.json"]
+    elif how == "CO_LADDER_OUT":
+        monkeypatch.setenv("CO_LADDER_OUT", "ladder_out.json")
+    seen = _fake_ladder(monkeypatch)
+    assert ladder.main(argv) == 0
+    if how == "neither":
+        assert os.listdir(tmp_path) == [] and [k for _, k in seen] == [0] * 3
+        return
+    assert [k for _, k in seen] == [0, 1, 2]
+    rows = json.load(open("ladder_out.json"))["rows"]
+    assert [r["config"] for r in rows] == [t for t, _ in seen]
+    assert rows[0]["device"] == "fake"
+
+
+def _reference_drift_script(monkeypatch):
+    """scripts/energy_drift.py loaded as a module, without its compile
+    cache and with sys.path restored."""
+    from coulomb_oscillators_tpu.utils import cache
+    monkeypatch.setattr(cache, "_enabled", True)
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "reference_energy_drift", os.path.join(root, "scripts",
+                                               "energy_drift.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_energy_drift_artifact_is_the_twins(tmp_path, monkeypatch, capsys):
+    """artifact() against the twin's emit_artifact, with both run_ones
+    replaced by one fake whose first rung drifts past 1e-6 and whose second
+    does not: the same two calls with the same arguments, the same printed
+    stiffening line, the same keys, values and config; the port adds the
+    bound, the verdict, each rung's drift and where it ran.  The second
+    rung's explicit boost wins over the accuracy-grade auto-boost in both
+    packages."""
+    from coulomb_oscillators_tpu import SimConfig as JConfig
+    from coulomb_oscillators_tpu.ops.fmm.kdtree import KdFmmEngine as JEng
+    from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import KdFmmEngine
+    ref = _reference_drift_script(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+
+    def fake(calls):
+        def run_one(*args, **kw):
+            kw.pop("device", None)
+            calls.append((args, kw))
+            return ((2e-6, 3e-6, 1.5) if len(calls) == 1
+                    else (4e-7, 6e-7, 1.25))
+        return run_one
+
+    want_calls, got_calls = [], []
+    monkeypatch.setattr(ref, "run_one", fake(want_calls))
+    monkeypatch.setattr(energy_drift, "run_one", fake(got_calls))
+    ref.emit_artifact(path=str(tmp_path / "ref.json"), steps=77)
+    want_out = capsys.readouterr().out
+    want = json.load(open(tmp_path / "ref.json"))
+    got = energy_drift.artifact(steps=77, device=torch.device("cpu"))
+    got_out = capsys.readouterr().out
+    assert got_calls == want_calls and len(got_calls) == 2
+    stiffen = [ln for ln in want_out.splitlines() if "stiffening" in ln]
+    assert len(stiffen) == 1 and stiffen[0] in got_out.splitlines()
+    assert set(got) - set(want) == {"bound", "pass", "rung_max_drifts",
+                                    "torch", "device"}
+    for k in ("metric", "value", "max_drift", "steps", "config",
+              "psteps_per_s"):
+        assert got[k] == want[k], k
+    assert got["config"]["mac_sub_boost"] == 4.0
+    assert (got["bound"], got["pass"], got["rung_max_drifts"]) == (
+        1e-6, True, [3e-6, 6e-7])
+    assert "total_energy_kahan" in got["measurement"]
+    assert os.listdir(tmp_path) == ["ref.json"]      # no default file
+    for kw in energy_drift.ARTIFACT_LADDER:
+        t = KdFmmEngine(SimConfig(fmm_order=6, tree_radius=2.5, **kw),
+                        30001).mac_sub_boost
+        assert t == JEng(JConfig(fmm_order=6, tree_radius=2.5, **kw),
+                         30001).mac_sub_boost
+        assert t == kw.get("mac_sub_boost", 2.0)
+
+
+def test_energy_drift_artifact_runs():
+    """The artifact at n=512, 20 steps on the CPU: finite drifts on the
+    first rung, well inside the bound."""
+    res = energy_drift.artifact(steps=20, n=512, device=torch.device("cpu"))
+    assert res["config"]["n"] == 512 and res["steps"] == 20
+    assert 0.0 <= res["value"] <= res["max_drift"] < 1e-6
+    assert res["pass"] and res["rung_max_drifts"] == [res["max_drift"]]
+    assert res["device"] == "cpu" and res["psteps_per_s"] > 0
+
+
 def test_energy_drift_run_one_exact_forces():
     """Exact forces at the encounter-resolving dt=2e-5: drift far below
     the 1e-6 north-star bound over 40 steps."""
@@ -63,6 +233,7 @@ def test_scripts_refuse_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert ladder.main(["1"]) == 1
     assert energy_drift.main(["sweep", "10"]) == 1
+    assert energy_drift.main(["artifact", "10"]) == 1
     err = capsys.readouterr().err
     assert "no CUDA device" in err
 
