@@ -8,7 +8,8 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
 
   1. device: a CUDA card, its name and power limit, the toolchain, and
      float32 matmuls kept out of TF32;
-  2. build: the two kernels (csrc/p2p.cu, csrc/direct.cu; nvcc for sm_90a)
+  2. build: the two kernels (csrc/p2p.cu with its four instantiations,
+     float and double in dims 3 and 2, csrc/direct.cu; nvcc for sm_90a)
      and the native host library (g++), all from the sources in this
      checkout and all started together;
   3. P2P kernel vs its plain PyTorch version on the card at N=1M, on the
@@ -49,8 +50,13 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      of max|a|); a Simulator("fmm3_traceless") run of 2 windows of 8 steps
      at N=1M;
  10. kd in 2D and float64: fmm2_kd at ladder 2's size (N=100k, p=4, r=2,
-     2D Gaussian beam) against Kahan (<= 2e-3) and a 12-step Simulator
-     timing; fmm3_kd in float64 at N=1M with sort_mode="morton" on the
+     2D Gaussian beam): the dim-2 P2P kernel against its plain version on
+     the engine state in float32 (<= 1e-5 of max|a|) and float64 (<=
+     1e-12), each with its work, bounds, share and CUDA-event times as in
+     phase 3; the force against Kahan (<= 2e-3); a 12-step Simulator
+     timing and a float64 Simulator of 8 steps, dim-2 P2P launches ==
+     force evaluations in both; fmm3_kd in float64 at N=1M with
+     sort_mode="morton" on the
      uniform box: the double P2P kernel against its plain float64 version
      (<= 1e-12 of max|a|, both timed, with its work and bounds as in
      phase 3), the force against a float64 Kahan
@@ -68,9 +74,10 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      at N=1M (p=6, r=1.67) and fmm2_kd at N=100k (p=4, r=2) with each
      stage's own kernel time beside them, the stage sum within 0.8-1.5x of
      the padded force by kernel times (0.8-3.0x by CUDA-event times, which
-     hold the host's launch gaps); a torch.profiler trace of 3
-     padded force calls whose kernel histogram names the P2P kernel; P2P
-     launches == the profile's own count of its force evaluations;
+     hold the host's launch gaps), the P2P stage the kernel in both; a
+     torch.profiler trace of 3 padded force calls of each engine whose
+     kernel histogram names the P2P kernel; P2P launches of each dim ==
+     the profile's own count of that engine's force evaluations;
  13. viewer: the port's CLI writes 2 snapshots on the card, the port's
      view renders them, the PNGs decode to 792 x 792 with a non-empty red
      channel;
@@ -94,6 +101,12 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      graphs against eager within max(2 x eager against eager, 1e-6) of
      max|pos|; s/step, captures, capture seconds, segments a step,
      collective calls a step and peak memory per rank printed.  Then
+     fmm2_kd at N=100k on 2 ranks sharing the card: the particle-sharded
+     (fmm_pshard) and the pair-sharded (fmm_shard) force against the
+     single-device force (<= 1e-5 of max|a|), one dim-2 P2P launch a
+     force on every rank, and the mesh-mode Simulator (3 windows of 8
+     with graphs) with as many dim-2 P2P launches as force evaluations on
+     every rank.  Then
      make_sharded_direct, ring and all-gather, on 2 ranks sharing the card
      at N=30001 against the single-device direct kernel (<= 1e-5), the
      direct kernel's separate-targets entry against the plain
@@ -113,7 +126,8 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      graphs, graph against eager within max(2 x eager against eager, 1e-6)
      of max|pos|; fmm3_traceless at N=1M (uniform box) and fmm2_kd at
      N=100k, 2 windows of 8 steps, within 1e-5; the kernels' launches
-     equal the force evaluations in both modes; s/step, CUDA-event
+     equal the force evaluations in both modes (fmm2_kd's on the dim-2
+     P2P kernel); s/step, CUDA-event
      ms/step, captures, capture seconds and peak memory of each run,
      printed with the card's name and power limit;
  17. probes: the four probe twins of scripts/ through their functions at
@@ -138,10 +152,12 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      run of the chosen (p, r), within 1e-4 of max|pos|; -chips 2
      -accuracy refused with -1 on one card.  Ladder rows 1 (direct,
      N=4096) and 3a (kd, N=1M, p=3, r=1.7) through scripts.ladder.run,
-     with geometry refresh and then with CO_GEOM_REFRESH=0: finite, the
+     with geometry refresh and then with CO_GEOM_REFRESH=0, and row 2
+     (fmm2_kd, N=100k, p=4, r=2) with geometry refresh: finite, the
      mode in the row, 1-2 step-graph captures, the direct and P2P
-     kernels' launches == the force evaluations each row made; one JSON
-     line a row with the card.  The north-star drift artifact
+     kernels' launches (row 2's on the dim-2 kernel) == the force
+     evaluations each row made; one JSON line a row with the card.  The
+     north-star drift artifact
      (scripts.energy_drift.artifact: N=30001, p=6, r=2.5, dt=2e-5, its
      stiffening ladder) cut to 2000 steps: max drift <= 1e-6, P2P launches
      == the force evaluations of its rungs; the first rung's drift and
@@ -178,6 +194,9 @@ N_GRID = 100_000        # uniform-grid engines, card vs CPU
 OCT_TOL = 5e-3          # octree p=5 vs Kahan (tests/test_octree.py:35)
 APPEL_TOL = 0.09        # Appel vs Kahan (tests/test_octree.py:53)
 KD2_TOL = 2e-3          # fmm2_kd vs Kahan (test_fmm_kd_variants.py:31)
+# fmm2_kd's config at ladder row 2 (scripts/ladder.py), on the 2D beam
+KD2_CFG = dict(dim=2, omega0=(1.095, 1.0), fmm_order=4, tree_radius=2.0)
+N_KD2 = 100_000
 F64_P2P_TOL = 1e-12     # double P2P kernel vs its plain float64 version
 # eager stages' sum over the padded force they make: of the kernels' own
 # times, and of the CUDA-event times (which hold the host's launch gaps,
@@ -236,17 +255,20 @@ def _rel_dev(a, b):
             float(d.abs().max()))
 
 
-def _p2p_case(cfg, sub_depth, pos, torch):
-    """P2P kernel vs plain on one engine built from `pos`."""
+def _p2p_case(cfg, sub_depth, pos, torch, n=N, tol=P2P_TOL, reps=(10, 2)):
+    """P2P kernel vs plain on one engine of `cfg` (its dim and dtype) built
+    from `pos` [n, dim], within `tol` of max|a|; `reps` CUDA-event calls
+    of the kernel and of the plain version.  Returns the case's row, and
+    the engine and its state."""
     from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
     from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR, KdFmmEngine
-    eng = KdFmmEngine(cfg, N, sub_depth=sub_depth)
+    eng = KdFmmEngine(cfg, n, sub_depth=sub_depth)
     tb = time.perf_counter()
     fs = eng.build(pos)
     torch.cuda.synchronize()
     tb = time.perf_counter() - tb
     ppad = eng.pad_array(pos, fs, fill=FAR)
-    pblk = ppad.reshape(eng.G_blk, eng.C_blk, 3)
+    pblk = ppad.reshape(eng.G_blk, eng.C_blk, cfg.dim)
 
     def kern():
         return eng._stage_p2p(ppad, fs)
@@ -260,18 +282,21 @@ def _p2p_case(cfg, sub_depth, pos, torch):
     torch.cuda.synchronize()
     _require(bool(torch.isfinite(got).all()), "finite kernel output")
     rel, mabs = _rel_dev(got, ref)
-    ms = _cuda_ms(kern, 10, torch)
-    plain_ms = _cuda_ms(plain, 2, torch)
+    ms = _cuda_ms(kern, reps[0], torch)
+    plain_ms = _cuda_ms(plain, reps[1], torch)
     work = _p2p_work(pblk, fs, eng, ms, torch)
-    print(f"p2p nsub={eng.nsub} L={eng.L} C={eng.st.C} Gb={eng.G_blk} "
+    what = "" if (cfg.dim, pblk.dtype) == (3, torch.float32) else \
+        f" dim={cfg.dim} {str(pblk.dtype).split('.')[-1]} N={n}"
+    print(f"p2p{what} nsub={eng.nsub} L={eng.L} C={eng.st.C} Gb={eng.G_blk} "
           f"CB={eng.C_blk} dmax={fs.p2p_col2d.shape[1]} build_s={tb:.3f}: "
           f"rel_dev={rel:.3e} max_abs={mabs:.3e} kernel_ms={ms:.3f} "
           f"plain_ms={plain_ms:.3f}; {work['text']}")
-    _require(rel <= P2P_TOL, f"P2P kernel vs plain at nsub={eng.nsub}, "
-             f"CB={eng.C_blk}: {rel:.3e} <= {P2P_TOL}")
+    _require(got.dtype == pos.dtype, f"P2P kernel output {got.dtype}")
+    _require(rel <= tol, f"P2P kernel vs plain{what} at nsub={eng.nsub}, "
+             f"CB={eng.C_blk}: {rel:.3e} <= {tol}")
     return dict(nsub=eng.nsub, CB=eng.C_blk, max_rel_err=rel, max_abs_err=mabs,
                 max_abs_ref=float(ref.abs().max()), ms=ms, plain_ms=plain_ms,
-                **work["row"])
+                **work["row"]), eng, fs
 
 
 def _p2p_work(pblk, fs, eng, ms, torch):
@@ -282,12 +307,13 @@ def _p2p_work(pblk, fs, eng, ms, torch):
     from coulomb_oscillators_tpu_torch.utils import roofline
     c = p2p_cuda.pair_counts(pblk, fs.p2p_row_ptr, fs.p2p_col2d, eng.nsub)
     double = pblk.dtype == torch.float64
-    b = roofline.bound(c["real_pairs"], c["bytes"], double=double)
+    dim = pblk.shape[-1]
+    b = roofline.bound(c["real_pairs"], c["bytes"], dim=dim, double=double)
     share = b["bound_ms"] / ms
     peak = roofline.FP64_FLOPS if double else roofline.FP32_FLOPS
     text = (f"entries={c['entries']} pairs={c['pairs']} "
             f"real_pairs={c['real_pairs']}; bounds: flop "
-            f"{b['flop_ms']:.4f} ms ({roofline.FLOPS_PER_PAIR[3]} flops a "
+            f"{b['flop_ms']:.4f} ms ({roofline.FLOPS_PER_PAIR[dim]} flops a "
             f"real pair at {peak / 1e12:g} TFLOP/s), rsqrt "
             f"{b['mufu_ms']:.4f} ms, bytes "
             f"{b['byte_ms']:.4f} ms ({c['bytes']} B); kernel at "
@@ -452,7 +478,8 @@ def _phase_grid_engines(dev, torch):
 
 def _phase_kd_variants(dev, torch):
     """Phase 10: the kd engine in 2D and in float64 on the card.  Returns
-    the float64 P2P kernel's row of the kernels line."""
+    the rows of the kernels line of the float64 P2P kernel and of the
+    dim-2 P2P kernel in float32 and float64."""
     import numpy as np
     from coulomb_oscillators_tpu_torch import SimConfig
     from coulomb_oscillators_tpu_torch.models import init_dist as ID
@@ -461,18 +488,29 @@ def _phase_kd_variants(dev, torch):
     from coulomb_oscillators_tpu_torch.simulate import Simulator
     from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
 
-    # fmm2_kd at ladder 2's size: N=100k, p=4, r=2, the 2D Gaussian beam
-    n2 = 100_000
-    cfg = SimConfig(dim=2, omega0=(1.095, 1.0), fmm_order=4, tree_radius=2.0)
+    # fmm2_kd at ladder 2's size: N=100k, p=4, r=2, the 2D Gaussian beam;
+    # the dim-2 P2P kernel against its plain version on its engine state,
+    # in float32 and in float64
+    n2 = N_KD2
+    cfg = SimConfig(**KD2_CFG)
     u = tuple(w * x for w, x in zip(cfg.omega0, X_STD[:2]))
     ph, vh = ID.init_gaussian(n2, X_STD[:2], u, dim=2, seed=SEED)
     x = torch.from_numpy(ph).to(dev)
-    eng = KdFmmEngine(cfg, n2)
-    acc = eng.force(x, eng.build(x))
+    rows2 = {}
+    for name, c, tol in (
+            ("p2p_dim2_float64", cfg.replace(precision="float64"),
+             F64_P2P_TOL),
+            ("p2p_dim2", cfg, P2P_TOL)):
+        xc = x.to(torch.float64) if c.precision == "float64" else x
+        rows2[name], eng, fs = _p2p_case(c, 2, xc, torch, n=n2, tol=tol,
+                                         reps=(20, 3))
+    acc = eng.force(x, fs)          # the float32 engine, built last
     err = _kahan_err(acc, x, cfg, n2, torch)
     _require(bool(torch.isfinite(acc).all()), "fmm2_kd finite force")
     sim = Simulator(cfg, n2, "fmm2_kd")
     try:
+        torch.cuda.synchronize()
+        p2p_cuda.launches_2d = 0
         st = sim.init_acc(particle_state_from_numpy(ph, vh, device=dev))
         st = sim.run(st, 2)
         torch.cuda.synchronize()
@@ -480,14 +518,44 @@ def _phase_kd_variants(dev, torch):
         st = sim.run(st, 12)
         torch.cuda.synchronize()
         tw = time.perf_counter() - tw
+        launches = p2p_cuda.launches_2d
     finally:
         sim.close()
+    evals = 1 + 2 + 12
+    rows2["p2p_dim2"]["launches"] = launches
     _require(bool(torch.isfinite(st.pos).all()), "fmm2_kd Simulator finite")
     print(f"fmm2_kd N={n2} p=4 r=2 (L={eng.L}, C={eng.st.C}): mean rel err "
           f"vs Kahan {err:.3e} (bound {KD2_TOL}); Simulator 12 steps "
           f"{tw:.3f} s ({tw / 12:.4f} s/step, {12 * n2 / tw / 1e6:.2f} M "
-          f"particle-steps/s)")
+          f"particle-steps/s); dim-2 p2p launches {launches} = force evals "
+          f"{evals}")
     _require(err <= KD2_TOL, f"fmm2_kd {err:.3e} <= {KD2_TOL}")
+    _require(launches == evals, f"fmm2_kd: {launches} dim-2 P2P kernel "
+             f"launches == {evals} force evaluations")
+
+    # fmm2_kd in float64: init_acc + 8 steps on the dim-2 double kernel
+    sim = Simulator(cfg.replace(precision="float64"), n2, "fmm2_kd")
+    try:
+        torch.cuda.synchronize()
+        p2p_cuda.launches_2d = 0
+        st = sim.init_acc(particle_state_from_numpy(
+            ph.astype(np.float64), vh.astype(np.float64), device=dev))
+        tw = time.perf_counter()
+        st = sim.run(st, 8)
+        torch.cuda.synchronize()
+        tw = time.perf_counter() - tw
+        launches = p2p_cuda.launches_2d
+    finally:
+        sim.close()
+    rows2["p2p_dim2_float64"]["launches"] = launches
+    print(f"fmm2_kd float64 N={n2}: 8 steps {tw:.3f} s ({tw / 8:.4f} "
+          f"s/step); dim-2 p2p launches {launches} = force evals 9")
+    _require(st.pos.dtype == torch.float64
+             and bool(torch.isfinite(st.pos).all()),
+             "fmm2_kd float64 Simulator finite float64")
+    _require(launches == 9, f"fmm2_kd float64: {launches} dim-2 P2P kernel "
+             f"launches == 9 force evaluations")
+    del eng, fs, acc, x
 
     # fmm3_kd in float64, Morton sort, N=1M on the uniform box
     cfg = SimConfig(fmm_order=5, tree_radius=2.0, precision="float64")
@@ -557,7 +625,7 @@ def _phase_kd_variants(dev, torch):
              f"{row['launches']} == force evaluations {evals}")
     _require(sim.rebuilds["adopt_device"] == windows - 2,
              f"{windows - 2} adopted device rebuilds: {dict(sim.rebuilds)}")
-    return row
+    return row, rows2
 
 
 def _phase_bench(torch):
@@ -602,12 +670,14 @@ def _phase_bench(torch):
 
 
 def _phase_profile(dev, torch):
-    """Phase 12: stage rows of fmm3_kd and fmm2_kd and a kernel trace."""
+    """Phase 12: stage rows of fmm3_kd and fmm2_kd and a kernel trace of
+    each.  Returns the records, the traces and the P2P launches of each
+    dim."""
     from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
     from coulomb_oscillators_tpu_torch.scripts import profile_force as PF
     reps, rebuilds, calls = 5, 1, 3
     torch.cuda.synchronize()
-    p2p_cuda.launches = 0
+    p2p_cuda.launches = p2p_cuda.launches_2d = 0
     recs = [PF.profile_engine("fmm3_kd", N, 6, 1.67, dev, reps, rebuilds),
             PF.profile_engine("fmm2_kd", PF.N_KD2, 4, 2.0, dev, reps,
                               rebuilds)]
@@ -620,24 +690,33 @@ def _phase_profile(dev, torch):
                      f"{ratio:.3f} x the padded force within {(lo, hi)}")
         _require(all(v > 0 for v in rec["stages_ms"].values()),
                  f"{rec['engine']} stage times are positive")
-    with tempfile.TemporaryDirectory() as tmp:
-        tr = PF.trace_force(N, 6, 1.67, dev, tmp, calls)
-    PF.print_histogram(tr, "call", "kernels_ms_per_call")
-    named = {k: v for k, v in tr["kernels_ms_per_call"].items()
-             if "p2p_kernel" in k}
-    _require(bool(named), f"the trace names the P2P kernel: "
-             f"{list(tr['kernels_ms_per_call'])[:8]}")
-    # dim 3 only launches the kernel: the stage rows' force_full,
+        _require(rec["p2p_kind"] == "cuda kernel",
+                 f"{rec['engine']}: the P2P stage is the kernel")
+    trs = {}
+    for engine, n, p, r in (("fmm3_kd", N, 6, 1.67),
+                            ("fmm2_kd", PF.N_KD2, 4, 2.0)):
+        with tempfile.TemporaryDirectory() as tmp:
+            tr = trs[engine] = PF.trace_force(n, p, r, dev, tmp, calls,
+                                              engine=engine)
+        PF.print_histogram(tr, "call", "kernels_ms_per_call")
+        named = {k: v for k, v in tr["kernels_ms_per_call"].items()
+                 if "p2p_kernel" in k}
+        _require(bool(named), f"the {engine} trace names the P2P kernel: "
+                 f"{list(tr['kernels_ms_per_call'])[:8]}")
+        print(f"profile {engine}: P2P kernel in the trace "
+              f"{sum(named.values()):.3f} ms a padded force call of "
+              f"{tr['device_ms_per_call']:.2f} ms device time")
+    # each engine's stage rows launch the kernel in force_full,
     # force_padded and p2p (a warm-up and `reps` timed calls each, then a
-    # warm-up and one traced call each), and the trace's warm-up and
+    # warm-up and one traced call each), and its trace in a warm-up and
     # `calls`
     evals = 3 * (1 + reps) + 3 * 2 + 1 + calls
-    _require(p2p_cuda.launches == evals, f"profile: {p2p_cuda.launches} P2P "
-             f"kernel launches == {evals} force evaluations")
-    print(f"profile: P2P kernel in the trace {sum(named.values()):.3f} ms a "
-          f"padded force call of {tr['device_ms_per_call']:.2f} ms device "
-          f"time; p2p launches {p2p_cuda.launches} = evals {evals}")
-    return recs, tr, p2p_cuda.launches
+    by_dim = {3: p2p_cuda.launches - p2p_cuda.launches_2d,
+              2: p2p_cuda.launches_2d}
+    _require(by_dim == {3: evals, 2: evals}, f"profile: P2P kernel "
+             f"launches by dim {by_dim} == {evals} force evaluations each")
+    print(f"profile: p2p launches by dim {by_dim} = evals {evals} each")
+    return recs, trs, by_dim
 
 
 def _phase_viewer():
@@ -775,33 +854,37 @@ def _mesh_rank(mesh, windows, modes):
     return rec
 
 
-def _mesh_sim(mesh, cfg, pos_h, vel_h, windows, graphs_on):
-    """One rank's mesh-mode Simulator at N=1M with ``CO_CUDA_GRAPHS`` 1 or
+def _mesh_sim(mesh, cfg, pos_h, vel_h, windows, graphs_on, n=N,
+              engine="fmm3_kd"):
+    """One rank's mesh-mode Simulator of the kd `engine` at `n` (N=1M
+    unless given) with ``CO_CUDA_GRAPHS`` 1 or
     0: init_acc + `windows` windows of tree_steps=8 with the async
     pipeline (the first boundary primes it, the next adopts the background
     rebuild), each window run as its first step (the boundary, the ranks'
     re-capture vote, a capture), timed, and then the rest, whose
     collective calls a step are counted and whose s/step is timed alone;
-    the captures so far are read after each window.  Checks on every rank: all ranks hold the same
-    state and adopted the same lists, finite [N, 3] positions, P2P
-    launches == force evaluations, the rebuilds; with graphs, captures >=
-    1 and the same on every rank.  Returns (the record, with per-rank
-    lists, the final positions)."""
+    the captures so far are read after each window.  Checks on every
+    rank: all ranks hold the same state and adopted the same lists, finite
+    [n, dim] positions, P2P launches (of the dim-2 instantiation alone in
+    2D) == force evaluations, the rebuilds; with graphs, captures >= 1
+    and the same on every rank.  Returns (the record, with per-rank lists,
+    the final positions)."""
     import torch
     from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
     from coulomb_oscillators_tpu_torch.simulate import Simulator
     from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
 
     dev = mesh.device
+    counter = "launches_2d" if cfg.dim == 2 else "launches"
     os.environ["CO_CUDA_GRAPHS"] = "1" if graphs_on else "0"
     try:
-        sim = Simulator(cfg, N, engine="fmm3_kd", mesh=mesh)
+        sim = Simulator(cfg, n, engine=engine, mesh=mesh)
     finally:
         del os.environ["CO_CUDA_GRAPHS"]
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        p2p_cuda.launches = 0
+        setattr(p2p_cuda, counter, 0)
         sim.init_acc(particle_state_from_numpy(pos_h, vel_h, device=dev))
         ts = sim.config.tree_steps
         win_s, first_s, rest_s, step_calls, caps = [], [], [], [], []
@@ -825,7 +908,7 @@ def _mesh_sim(mesh, cfg, pos_h, vel_h, windows, graphs_on):
                                for k, v in mesh.calls.items()})
         final = sim.current_state()
         torch.cuda.synchronize()
-        launches = p2p_cuda.launches
+        launches = getattr(p2p_cuda, counter)
         fstate = sim._fstate
         g = sim.graph
         graph = ([g.captures, g.segments, g.capture_seconds] if g
@@ -849,7 +932,8 @@ def _mesh_sim(mesh, cfg, pos_h, vel_h, windows, graphs_on):
     _require(bool((rows == rows[0]).all()), "all ranks hold the same state "
              "and adopted the same lists")
     _require(bool(torch.isfinite(final.pos).all())
-             and final.pos.shape == (N, 3), "finite [N, 3] positions")
+             and final.pos.shape == (n, cfg.dim),
+             f"finite [{n}, {cfg.dim}] positions")
     _require(launches == evals, f"rank {mesh.rank} (graphs={graphs_on}): "
              f"{launches} P2P kernel launches == {evals} force evaluations")
     _require(sim.rebuilds["adopt_full"] == windows - 2
@@ -876,6 +960,64 @@ def _mesh_sim(mesh, cfg, pos_h, vel_h, windows, graphs_on):
              peak_reserved_gib=per_rank[:, 5].tolist(),
              rebuilds=dict(sim.rebuilds), wait_s=sim.rebuild_wait_total)
     return r, final.pos
+
+
+def _mesh_rank_2d(mesh, windows):
+    """One rank of the 2D mesh run: fmm2_kd at N_KD2 (ladder 2's config,
+    the 2D beam, seed 0).  The particle-sharded force_padded
+    (parallel/fmm_pshard.py) and the pair-sharded force
+    (parallel/fmm_shard.py) against the single-device force on the same
+    tree (<= 1e-5 of max|a| on rank 0), one dim-2 P2P launch a force
+    evaluation on every rank, then the mesh-mode Simulator with CUDA
+    graphs (:func:`_mesh_sim`).  Returns rank 0's record."""
+    import torch
+    from coulomb_oscillators_tpu_torch import SimConfig
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR, KdFmmEngine
+    from coulomb_oscillators_tpu_torch.parallel.fmm_pshard import (
+        PShardedKdFmm, shard_pair_lists)
+    from coulomb_oscillators_tpu_torch.parallel.fmm_shard import (
+        make_sharded_force)
+
+    dev, P = mesh.device, mesh.ndev
+    cfg = SimConfig(**KD2_CFG)
+    u = tuple(w * x for w, x in zip(cfg.omega0, X_STD[:2]))
+    pos_h, vel_h = ID.init_gaussian(N_KD2, X_STD[:2], u, dim=2, seed=SEED)
+    pos = torch.from_numpy(pos_h).to(dev)
+    eng = KdFmmEngine(cfg, N_KD2)
+    fs = eng.build(pos)
+    ps = PShardedKdFmm(eng, mesh)
+    lists, hops = shard_pair_lists(eng, fs, P)
+    ppad = eng.pad_array(pos, fs, fill=FAR)
+    force = make_sharded_force(eng, mesh)
+    rec = dict(P=P, L=eng.L, C=eng.st.C, hops=hops)
+    outs = {}
+    for name, fn in (
+            ("pshard", lambda: eng.unpad_array(ps.gather_padded(
+                ps.force_padded(ps.shard_padded(ppad), fs, lists, hops)),
+                fs)),
+            ("shard", lambda: force(pos, fs))):
+        torch.cuda.synchronize()
+        p2p_cuda.launches_2d = 0
+        outs[name] = fn()
+        torch.cuda.synchronize()
+        rec[name + "_launches"] = p2p_cuda.launches_2d
+        _require(rec[name + "_launches"] == 1, f"rank {mesh.rank}: {name} "
+                 f"force, {rec[name + '_launches']} dim-2 P2P launches == 1")
+    if mesh.rank == 0:
+        single = eng.unpad_array(eng.force_padded(ppad, fs), fs)
+        for name, acc in outs.items():
+            rec[name + "_vs_single"], _ = _rel_dev(acc, single)
+            _require(bool(torch.isfinite(acc).all())
+                     and acc.shape == (N_KD2, 2), f"finite {name} force")
+            _require(rec[name + "_vs_single"] <= P2P_TOL,
+                     f"2D {name} force vs single-device "
+                     f"{rec[name + '_vs_single']:.3e} <= {P2P_TOL}")
+    del outs, ppad, lists, fs, eng, ps
+    rec["sim"], _ = _mesh_sim(mesh, cfg, pos_h, vel_h, windows, True,
+                              n=N_KD2, engine="fmm2_kd")
+    return rec
 
 
 def _cli_graph_rank(mesh, argv):
@@ -933,8 +1075,8 @@ def _mesh_direct_rank(mesh, n):
 
 def _phase_multi_device(dev, smi, torch):
     """Phase 15: the multi-device layer on the one card.  Returns (per-rank
-    P2P launches by run, the direct kernel's launches by scheme, the
-    separate-targets entry's row)."""
+    P2P launches by run in 3D and in 2D, the direct kernel's launches by
+    scheme, the separate-targets entry's row)."""
     import numpy as np
     from coulomb_oscillators_tpu_torch import cli
     from coulomb_oscillators_tpu_torch.ops import direct as D
@@ -1003,6 +1145,30 @@ def _phase_multi_device(dev, smi, torch):
         for sim in r["sims"][:2]:
             p2p_by_run[key + ("" if sim["graphs"] else "_eager")] = \
                 sim["launches"][0]
+
+    # fmm2_kd on 2 ranks sharing the card: the dim-2 P2P kernel on the
+    # sharded near fields and in the mesh-mode Simulator
+    t0 = time.perf_counter()
+    r = PM.spawn(_mesh_rank_2d, 2, windows, timeout=300, device="cuda:0",
+                 share_device=True)
+    sim = r["sim"]
+    print(f"mesh 2D [2 ranks sharing one {smi}] fmm2_kd N={N_KD2}: "
+          f"L={r['L']} C={r['C']} hops={r['hops']}; particle-sharded force "
+          f"vs single-device {r['pshard_vs_single']:.3e}, pair-sharded "
+          f"{r['shard_vs_single']:.3e} of max|a| (bound {P2P_TOL}); dim-2 "
+          f"p2p launches a force {r['pshard_launches']} / "
+          f"{r['shard_launches']}; mesh simulator with graphs: window s "
+          f"{sim['win_s']}, captures per rank {sim['captures']}, segments "
+          f"{sim['segments']}, rebuilds {sim['rebuilds']}; dim-2 p2p "
+          f"launches per rank {sim['launches']} = force evals "
+          f"{sim['evals']}; spawn {time.perf_counter() - t0:.1f} s")
+    _require(len(sim["launches"]) == 2
+             and all(c == sim["evals"] for c in sim["launches"]),
+             f"2D mesh: dim-2 P2P launches on every rank {sim['launches']} "
+             f"== {sim['evals']}")
+    p2p2_by_run = {"mesh_2": sim["launches"][0],
+                   "mesh_2_pshard_force": r["pshard_launches"],
+                   "mesh_2_shard_force": r["shard_launches"]}
 
     # the sharded direct force, 2 ranks sharing the card
     r = PM.spawn(_mesh_direct_rank, 2, N_CLI, device="cuda:0",
@@ -1088,7 +1254,7 @@ def _phase_multi_device(dev, smi, torch):
     graft_entry.dryrun_multichip(2, device="cuda:0", share_device=True)
     print(f"dryrun_multichip ok: 2 ranks sharing one {smi}, "
           f"{time.perf_counter() - td:.1f} s")
-    return p2p_by_run, direct_by_scheme, ts_row
+    return p2p_by_run, p2p2_by_run, direct_by_scheme, ts_row
 
 
 def _sim_windows(torch, graphs_on, cfg, n, engine, pos_h, vel_h, windows,
@@ -1113,7 +1279,7 @@ def _sim_windows(torch, graphs_on, cfg, n, engine, pos_h, vel_h, windows,
         del os.environ["CO_CUDA_GRAPHS"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    p2p_cuda.launches = D.launches = 0
+    p2p_cuda.launches = p2p_cuda.launches_2d = D.launches = 0
     out = dict(s_per_step=[], event_ms_per_step=[])
     try:
         st = sim.init_acc(particle_state_from_numpy(pos_h, vel_h, device=dev))
@@ -1148,7 +1314,9 @@ def _sim_windows(torch, graphs_on, cfg, n, engine, pos_h, vel_h, windows,
                capture_s=g.capture_seconds if g else 0.0,
                peak_bytes=torch.cuda.max_memory_allocated(),
                peak_reserved_bytes=torch.cuda.max_memory_reserved(),
-               p2p_launches=p2p_cuda.launches, direct_launches=D.launches,
+               p2p_launches=p2p_cuda.launches,
+               p2p_launches_2d=p2p_cuda.launches_2d,
+               direct_launches=D.launches,
                rebuilds=dict(getattr(sim, "rebuilds", {})))
     _require(bool(torch.isfinite(st.pos).all()), f"{engine} finite "
              f"(graphs={graphs_on})")
@@ -1164,7 +1332,8 @@ def _phase_graphs(dev, smi, torch):
     def line(name, r):
         keys = ("s_per_step", "event_ms_per_step", "captures", "capture_s",
                 "peak_bytes", "peak_reserved_bytes", "p2p_launches",
-                "direct_launches", "rebuilds", "device_ms_per_step",
+                "p2p_launches_2d", "direct_launches", "rebuilds",
+                "device_ms_per_step",
                 "busy_share")
         print(f"graphs {name} graphs={r['graphs']} ({smi}): "
               + json.dumps({k: r[k] for k in keys if k in r}))
@@ -1233,6 +1402,14 @@ def _phase_graphs(dev, smi, torch):
                           busy=True) for g in (True, False)]
         for r in c:
             line(f"{name} N={n}", r)
+            if name == "fmm2_kd":
+                # init_acc, 2 windows of 8 and the profiled window of 8
+                evals = 1 + 8 + 8 + 8
+                _require(r["p2p_launches"] == r["p2p_launches_2d"] == evals,
+                         f"fmm2_kd (graphs={r['graphs']}): dim-2 P2P "
+                         f"launches {r['p2p_launches_2d']} (all "
+                         f"{r['p2p_launches']}) == {evals} force "
+                         f"evaluations")
         d, _ = _rel_dev(c[0]["pos"], c[1]["pos"])
         print(f"graphs {name} N={n}: graph vs eager {d:.3e} of max|pos|; "
               f"s/step (window 2) graph {c[0]['s_per_step'][1]:.4f} eager "
@@ -1441,16 +1618,20 @@ def _phase_ladder_drift(dev, smi, torch):
           f"refused", flush=True)
 
     # ladder rows 1 and 3a at their published sizes, geometry refresh on
-    # and then off (CO_GEOM_REFRESH=0, the twin's freeze-and-drift mode)
-    rows = [r for r in ladder.configs({1, 3}) if r[0] != ladder.OCTREE_ROW]
-    launches = {"ladder": {"p2p": 0, "direct": 0}}
+    # and then off (CO_GEOM_REFRESH=0, the twin's freeze-and-drift mode),
+    # and row 2 (fmm2_kd, the dim-2 P2P kernel) with geometry refresh
+    rows = [r for r in ladder.configs({1, 2, 3})
+            if r[0] != ladder.OCTREE_ROW]
+    launches = {"ladder": {"p2p": 0, "direct": 0}, "ladder_2": 0}
     saved = os.environ.pop("CO_GEOM_REFRESH", None)
     try:
         for mode in ("1", "0"):
             os.environ["CO_GEOM_REFRESH"] = mode
             for tag, cfg, n, engine, kw in rows:
+                if cfg.dim == 2 and mode == "0":
+                    continue
                 torch.cuda.synchronize()
-                p2p_cuda.launches = 0
+                p2p_cuda.launches = p2p_cuda.launches_2d = 0
                 D.launches = 0
                 row = ladder.run(tag, cfg, n, engine, dev, **kw)
                 torch.cuda.synchronize()
@@ -1459,6 +1640,9 @@ def _phase_ladder_drift(dev, smi, torch):
                 seen = {"p2p": p2p_cuda.launches, "direct": D.launches}
                 want = ({"p2p": 0, "direct": evals} if engine == "direct"
                         else {"p2p": evals, "direct": 0})
+                if cfg.dim == 2:
+                    seen["p2p_dim2"] = p2p_cuda.launches_2d
+                    want["p2p_dim2"] = evals
                 print(json.dumps(dict(row, card=smi, launches=seen)),
                       flush=True)
                 print(f"ladder {tag} geom_refresh={row['geom_refresh']} on "
@@ -1473,8 +1657,11 @@ def _phase_ladder_drift(dev, smi, torch):
                          f"{want} ({evals} force evaluations)")
                 _require(1 <= row["captures"] <= 2, f"ladder {tag}: "
                          f"captures {row['captures']} in 1-2")
-                for k in seen:
-                    launches["ladder"][k] += seen[k]
+                if cfg.dim == 2:
+                    launches["ladder_2"] += seen["p2p_dim2"]
+                else:
+                    for k in seen:
+                        launches["ladder"][k] += seen[k]
     finally:
         if saved is None:
             os.environ.pop("CO_GEOM_REFRESH", None)
@@ -1575,7 +1762,7 @@ def main() -> int:
     pos = torch.from_numpy(pos_h).to(dev)
     # the main path's engine, sub_depth=0, and the two blocks wider than
     # 256 slots that the CLI's -i 0.25 and -maxlevel 10 reach
-    p2p_rows = [_p2p_case(c, sd, pos, torch) for c, sd in (
+    p2p_rows = [_p2p_case(c, sd, pos, torch)[0] for c, sd in (
         (cfg, 2), (cfg, 0), (cfg.replace(dens_inhom=0.25), 2),
         (cfg.replace(tree_L=10), 2))]
     _require([r["CB"] for r in p2p_rows[2:]] == [512, 1024],
@@ -1850,7 +2037,7 @@ def main() -> int:
 
     # ---- 10. kd in 2D and float64 --------------------------------------
     t0 = time.perf_counter()
-    f64_row = _phase_kd_variants(dev, torch)
+    f64_row, kd2_rows = _phase_kd_variants(dev, torch)
     _phase("kd 2D and float64", t0)
 
     # ---- 11. the port's bench ------------------------------------------
@@ -1860,7 +2047,7 @@ def main() -> int:
 
     # ---- 12. stage profile and kernel trace ----------------------------
     t0 = time.perf_counter()
-    _, _, profile_launches = _phase_profile(dev, torch)
+    _, _, profile_launches = _phase_profile(dev, torch)   # by dim
     _phase("profile", t0)
 
     # ---- 13. the viewer ------------------------------------------------
@@ -1878,12 +2065,13 @@ def main() -> int:
 
     # ---- 15. the multi-device layer ------------------------------------
     t0 = time.perf_counter()
-    mesh_p2p, mesh_direct, ts_row = _phase_multi_device(dev, smi, torch)
+    mesh_p2p, mesh_p2p2, mesh_direct, ts_row = _phase_multi_device(
+        dev, smi, torch)
     _phase("multi-device", t0)
 
     # ---- 16. CUDA graphs against eager steps ---------------------------
     t0 = time.perf_counter()
-    _phase_graphs(dev, smi, torch)
+    graph_rows = _phase_graphs(dev, smi, torch)
     _phase("graphs", t0)
 
     # ---- 17. the probe twins at N=1M ----------------------------------
@@ -1908,7 +2096,7 @@ def main() -> int:
          "launches": p2p_launches,
          "launches_by_path": {"simulator": p2p_launches,
                               "bench": bench_launches,
-                              "profile": profile_launches,
+                              "profile": profile_launches[3],
                               "probes": probe_launches["p2p"],
                               "ladder": ld_launches["ladder"]["p2p"],
                               "drift_artifact": ld_launches["drift_artifact"],
@@ -1930,6 +2118,34 @@ def main() -> int:
          "plain_ms": f64_row["plain_ms"], "pairs": f64_row["pairs"],
          "real_pairs": f64_row["real_pairs"],
          **{k: f64_row[k] for k in bound_keys}, "library_ms": None},
+        *[{"name": name, "route": "cuda",
+           "source": "coulomb_oscillators_tpu_torch/csrc/p2p.cu",
+           "replaces": "coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py:52",
+           "also_replaces":
+               "coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py:110",
+           "replaces_bodies": "_p2p_kernel and _p2p_stream_kernel with "
+                              "dim=2 (w = r*r)",
+           "dim": 2, "dtype": dtype, "launches": r["launches"],
+           "launches_by_path": paths,
+           "max_abs_err": r["max_abs_err"], "max_abs_ref": r["max_abs_ref"],
+           "max_rel_err": r["max_rel_err"], "ms": r["ms"],
+           "plain_ms": r["plain_ms"], "pairs": r["pairs"],
+           "real_pairs": r["real_pairs"], "entries": r["entries"],
+           **{k: r[k] for k in bound_keys + ("flop_ms", "mufu_ms",
+                                            "byte_ms")},
+           "library_ms": None}
+          for name, dtype, r, paths in (
+              ("p2p_dim2", "float32", kd2_rows["p2p_dim2"],
+               {"kd_variants": kd2_rows["p2p_dim2"]["launches"],
+                "graphs": {"graphs": graph_rows["fmm2_kd"][0]
+                           ["p2p_launches_2d"],
+                           "eager": graph_rows["fmm2_kd"][1]
+                           ["p2p_launches_2d"]},
+                "profile": profile_launches[2], **mesh_p2p2,
+                "ladder_2": ld_launches["ladder_2"]}),
+              ("p2p_dim2_float64", "float64",
+               kd2_rows["p2p_dim2_float64"],
+               {"kd_variants": kd2_rows["p2p_dim2_float64"]["launches"]}))],
         {"name": "direct", "route": "cuda",
          "source": "coulomb_oscillators_tpu_torch/csrc/direct.cu",
          "replaces": "coulomb_oscillators_tpu/ops/direct.py:161",

@@ -15,12 +15,15 @@ One layout on every device and in both dims: C is always padded to the
 reference's lane quantum ``max(128 >> sub_depth, 8)`` and the per-sub-leaf
 CSR (``p2p_row_ptr``, ``p2p_col2d``) is always built, so the integer state
 equals the reference engine's ``use_pallas=True`` build and the CPU and
-CUDA paths never differ in layout.  In dim 3 a CUDA tensor's P2P stage runs
-the hand-written kernel (``p2p_cuda``, float32 or float64).  In dim 2 the
-near field is plain PyTorch on every device, as in the reference, whose
-engine never gives dim 2 to its kernel (the FAR pads' 1/r^2 weight does
-not underflow, and its kernel is dim 3 only).  The far field is plain
-PyTorch.  Geometry stays in the working dtype; the native builder and
+CUDA paths never differ in layout.  A CUDA tensor's P2P stage runs the
+hand-written kernel (``p2p_cuda``, float32 or float64) in both dims, as the
+reference's kernel computes both (its ``dim`` argument).  The reference's
+engine keeps dim 2 on its jnp scan for TPU reasons (the FAR pads' 1/r^2
+weight does not underflow, and its block SoA has a VMEM budget); on the
+card the dim-2 kernel's float32 pad skip drops terms of ~5e-19 a pad,
+below the float32 resolution of a real target's sum (``csrc/p2p.cu``,
+"Pads").  A CPU tensor's P2P stage is the plain sum.  The far field is
+plain PyTorch.  Geometry stays in the working dtype; the native builder and
 traversal take float32 copies, as in the reference.
 
 Not ported (TPU-only workarounds, see ROADMAP.md): the flattened P2P
@@ -1033,30 +1036,24 @@ class KdFmmEngine:
         return locs                                           # [G, S_Lt]
 
     def _stage_p2p(self, ppad: torch.Tensor, fs: FmmState) -> torch.Tensor:
-        """Near-field pass on padded blocks: [G, C, dim], unscaled.  In dim
-        3 a CUDA tensor runs the Hopper kernel on the CSR.  Otherwise (dim
-        2 on every device: the kernel is dim 3 only, as the reference's; see
-        the module docstring; or a CPU tensor) the plain sum runs over the
-        padded pair list (``p2p_tgt``, ``p2p_src``), which holds the CSR's
-        valid entries in order and pad entries with the dummy target and a
-        zero lane mask after them.  On a CUDA tensor it runs the list's
-        whole capacity, so its shapes never depend on the data and nothing
-        waits for the device.  On a CPU tensor (no device to wait for, no
-        graph) it runs the grow-only prefix ``near_cap``, or the state's own
-        valid count where that is longer (a state built elsewhere): the
-        capacity's 8192-entry floor would multiply the work at small N.
-        The plain sum reads the pair list, not the CSR: a caller that
-        shards the CSR's rows calls ``p2p_cuda`` on it
-        (``parallel/fmm_shard.py``)."""
+        """Near-field pass on padded blocks: [G, C, dim], unscaled.  A CUDA
+        tensor runs the Hopper kernel on the CSR, in dim 2 or 3 (see the
+        module docstring); a layout it cannot take raises.  A CPU tensor
+        runs the plain sum over the padded pair list (``p2p_tgt``,
+        ``p2p_src``), which holds the CSR's valid entries in order and pad
+        entries with the dummy target and a zero lane mask after them: its
+        grow-only prefix ``near_cap``, or the state's own valid count where
+        that is longer (a state built elsewhere), since the capacity's
+        8192-entry floor would multiply the work at small N.  The plain sum
+        reads the pair list, not the CSR: a caller that shards the CSR's
+        rows calls ``p2p_cuda`` on it (``parallel/fmm_shard.py``)."""
         pblk = ppad.reshape(self.G_blk, self.C_blk, self.dim).contiguous()
-        if self.dim == 3 and pblk.device.type != "cpu":
+        if pblk.device.type != "cpu":
             out = p2p_cuda.p2p(pblk, fs.p2p_row_ptr, fs.p2p_col2d, self.nsub,
                                self.config.eps2)
         else:
-            tgt, src = fs.p2p_tgt, fs.p2p_src
-            if pblk.device.type == "cpu":
-                k = max(self.near_cap, int(fs.p2p_row_ptr.numpy()[-1]))
-                tgt, src = tgt[:k], src[:k]
-            out = p2p_cuda.p2p_plain_entries(pblk, tgt, src, self.nsub,
+            k = max(self.near_cap, int(fs.p2p_row_ptr.numpy()[-1]))
+            out = p2p_cuda.p2p_plain_entries(pblk, fs.p2p_tgt[:k],
+                                             fs.p2p_src[:k], self.nsub,
                                              self.config.eps2)
         return out.reshape(self.G_sub, self.st.C, self.dim)

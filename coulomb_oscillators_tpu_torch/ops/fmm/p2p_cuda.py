@@ -1,39 +1,44 @@
 """Near-field (P2P) pass: the Hopper kernel's wrapper, its plain PyTorch
-version, and its launch counter.
+version, and its launch counters.
 
 Counterpart of ``coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py``: both of
-its kernels (``p2p_leaf_pairs`` and ``p2p_leaf_pairs_streaming``) become
-one CUDA kernel, ``csrc/p2p.cu``, built with ``nvcc`` for ``sm_90a`` at
-first use and bound through ctypes.
+its kernels (``p2p_leaf_pairs`` and ``p2p_leaf_pairs_streaming``), in both
+of their dims (weight r^3 in dim 3, r^2 in dim 2), become one CUDA kernel,
+``csrc/p2p.cu``, with four instantiations (float32 and float64, dims 3 and
+2), built with ``nvcc`` for ``sm_90a`` at first use and bound through
+ctypes.
 
-Contract (both versions): ``pos`` [Gb, CB, 3] float32 or float64 padded
-slots in block layout (nsub sub-leaves of C = CB/nsub slots per block, pads
-at FAR);
+Contract (both versions): ``pos`` [Gb, CB, dim] float32 or float64 padded
+slots in block layout, dim 2 or 3 (nsub sub-leaves of C = CB/nsub slots
+per block, pads at FAR);
 ``row_ptr`` [Gb*nsub + 1] int32 per-sub-leaf CSR degrees; ``col2d``
 [Gb*nsub, dmax] int32 packed partner entries ``blk | bits << (32 - nsub)``
 (bit q selects lane group q of source block ``blk``; block id Gb is the
 all-FAR sentinel).  Returns the unscaled near-field acceleration
-[Gb, CB, 3]: for every target, sum over its partners' selected sources of
-d * (|d|^2 + eps2)^(-3/2), in the dtype of ``pos``.
+[Gb, CB, dim]: for every target, sum over its partners' selected sources
+of d * (|d|^2 + eps2)^(-3/2) in dim 3, d * (|d|^2 + eps2)^-1 in dim 2, in
+the dtype of ``pos``.
 
 :func:`p2p` dispatches on the device of ``pos``: a CPU tensor goes to
-:func:`p2p_plain`; a CUDA tensor goes to the kernel's float32 or float64
-instantiation or raises.  There is no fallback between them.  Before the
-launch the wrapper sorts the kernel's CUDA blocks by their partner entry
-count, heaviest first (:func:`block_order`, a few small device ops, no
-host sync), so the longest rows do not start last; the result does not
-depend on that order (:func:`launch` takes any order, or none).
-:func:`p2p_plain` also takes dim 2 (weight 1/dist2).  The kd engine runs
-the plain sum as :func:`p2p_plain_entries` over its padded pair list (dim 2
-on every device, dim 3 on the CPU): the same entries as the CSR's valid
-prefix, padded to the list's capacity, so the sum has no data-dependent
-shape and no host wait.
+:func:`p2p_plain`; a CUDA tensor goes to the kernel's instantiation for
+its dim and dtype, or raises.  There is no fallback between them.  Before
+the launch the wrapper sorts the kernel's CUDA blocks by their partner
+entry count, heaviest first (:func:`block_order`, a few small device ops,
+no host sync), so the longest rows do not start last; the result does not
+depend on that order (:func:`launch` takes any order, or none).  On a CPU
+tensor the kd engine runs the plain sum as :func:`p2p_plain_entries` over
+its padded pair list: the same entries as the CSR's valid prefix, padded
+to the list's capacity, so the sum has no data-dependent shape and no
+host wait.
 
 Pads are not masked: a pad source at FAR adds d * w(FAR) to a real target,
 as in the reference's near-field sum.  In float32 dim 3 that weight
-underflows to exactly 0; in float64 it is r^3 = 1e-54, so each pad adds
-about 1e-36, and in dim 2 about 1e-18 — in both versions, as in the
-reference.
+underflows to exactly 0; in float64 dim 3 it is r^3 = 1e-54, so each pad
+adds about 1e-36; in dim 2 it is r^2 = 5e-37, so each pad adds about
+5e-19 in both dtypes.  The plain version adds every such term; the
+kernel's float32 instantiations skip all-pad source packets, all-pad
+target tiles and the sentinel block, which in dim 2 drops terms of at most
+~5e-19 each, far below the float32 resolution of a real target's sum.
 """
 
 from __future__ import annotations
@@ -52,10 +57,14 @@ PAD_X = 1e17               # x at or above it marks a pad slot (kPadX)
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc", "p2p.cu")
 
-# kernel launches made through :func:`p2p`; counted nowhere else (a CUDA graph's replay
-# adds what its captured step launched, utils/graphs.py)
+# kernel launches made through :func:`launch` (:func:`p2p` on a CUDA
+# tensor), in either dim, and those of the dim-2 instantiations alone;
+# counted nowhere else (a CUDA graph's replay adds what its captured step
+# launched, utils/graphs.py)
 launches = 0
+launches_2d = 0
 graphs.register_counter(sys.modules[__name__], "launches")
+graphs.register_counter(sys.modules[__name__], "launches_2d")
 
 # pairs per chunk of the plain version (bounds its [k, C, CB] temporaries)
 _PLAIN_PAIRS = 1 << 25
@@ -66,10 +75,18 @@ BLOCK_SLOTS = 128
 TILE_SLOTS = 32
 
 
+# the C entry point of each (dim, dtype) instantiation
+_ENTRY = {(3, torch.float32): "co_p2p_launch",
+          (3, torch.float64): "co_p2p_launch_f64",
+          (2, torch.float32): "co_p2p_launch_2d",
+          (2, torch.float64): "co_p2p_launch_2d_f64"}
+
+
 def _bind(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for fn, eps in ((lib.co_p2p_launch, ctypes.c_float),
-                    (lib.co_p2p_launch_f64, ctypes.c_double)):
+    for (_, dtype), name in _ENTRY.items():
+        fn = getattr(lib, name)
+        eps = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, eps, vp]
         fn.restype = ci
 
@@ -80,8 +97,9 @@ library = native.CudaLibrary(SRC, "co_p2p", _bind)
 
 def _check(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
            nsub: int):
-    if pos.dim() != 3 or pos.shape[2] != 3:
-        raise ValueError(f"pos must be [Gb, CB, 3], got {tuple(pos.shape)}")
+    if pos.dim() != 3 or pos.shape[2] not in (2, 3):
+        raise ValueError(f"pos must be [Gb, CB, 2] or [Gb, CB, 3], got "
+                         f"{tuple(pos.shape)}")
     Gb, CB, _ = pos.shape
     if pos.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"pos must be float32 or float64, got {pos.dtype}")
@@ -118,7 +136,7 @@ def block_order(row_ptr: torch.Tensor, Gb: int, CB: int, nsub: int,
 
 def p2p(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
         nsub: int, eps2: float) -> torch.Tensor:
-    """Near-field acceleration [Gb, CB, 3] (see the module contract)."""
+    """Near-field acceleration [Gb, CB, dim] (see the module contract)."""
     _check(pos, row_ptr, col2d, nsub)
     if pos.device.type == "cpu":
         return p2p_plain(pos, row_ptr, col2d, nsub, eps2)
@@ -133,9 +151,10 @@ def launch(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
            nsub: int, eps2: float, order: torch.Tensor | None):
     """The kernel on CUDA tensors that :func:`_check` accepted, its CUDA
     blocks in `order` (:func:`block_order`) or, with None, in grid order:
-    the same result either way.  Counts the launch."""
-    global launches
-    Gb, CB, _ = pos.shape
+    the same result either way.  Counts the launch (and, in dim 2, in
+    ``launches_2d`` too)."""
+    global launches, launches_2d
+    Gb, CB, dim = pos.shape
     C = CB // nsub
     if C % 32 or nsub > 8:
         raise ValueError(f"the CUDA kernel takes C % 32 == 0 and nsub <= 8; "
@@ -149,8 +168,7 @@ def launch(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
                               or order.device != pos.device):
         raise ValueError(f"order must be int32 [{blocks}] on {pos.device}")
     lib = library.get()
-    fn = (lib.co_p2p_launch if pos.dtype == torch.float32
-          else lib.co_p2p_launch_f64)
+    fn = getattr(lib, _ENTRY[dim, pos.dtype])
     if pos.data_ptr() % 16:              # the kernel copies 16-byte pieces
         pos = pos.clone()
     dmax = col2d.shape[1]
@@ -162,17 +180,19 @@ def launch(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"P2P kernel launch failed: cudaError_t {rc}")
     launches += 1
+    if dim == 2:
+        launches_2d += 1
     return out
 
 
 def pair_counts(pos: torch.Tensor, row_ptr: torch.Tensor,
                 col2d: torch.Tensor, nsub: int) -> dict:
-    """The work of one call, counted from its inputs: `entries` (partner
-    entries within the degrees, sentinel included), `pairs` (C targets x
-    C sources for every set mask bit of a real block: every slot pair,
-    pads included) and `real_pairs` (pairs whose target and source both
-    are real, x < PAD_X), and `bytes` (positions read once, the output
-    written once, the entries and row_ptr read once)."""
+    """The work of one call in either dim, counted from its inputs:
+    `entries` (partner entries within the degrees, sentinel included),
+    `pairs` (C targets x C sources for every set mask bit of a real block:
+    every slot pair, pads included) and `real_pairs` (pairs whose target
+    and source both are real, x < PAD_X), and `bytes` (positions read
+    once, the output written once, the entries and row_ptr read once)."""
     Gb, CB, dim = pos.shape
     C = CB // nsub
     dev = pos.device
@@ -197,7 +217,8 @@ def pair_counts(pos: torch.Tensor, row_ptr: torch.Tensor,
 
 def p2p_plain(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
               nsub: int, eps2: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device, in dims 2 and 3:
+    """Plain PyTorch version of the kernel, on any device, in dims 2 and 3
+    (the oracle of every instantiation, and the CPU path):
     :func:`p2p_plain_entries` over the valid prefix of every sub-leaf's
     partner row, as flat entries in row-major order (entries past a row's
     degree are never read by either version).  That prefix's length
@@ -224,7 +245,8 @@ def p2p_plain_entries(pos: torch.Tensor, tgt: torch.Tensor,
     Gathers target sub-leaf and source block tiles in chunks and evaluates
     the same pair weight as the kernel, r = rsqrt(dist2), w = r^3 (dim 3)
     or r^2 (dim 2) times the lane-group mask.  Source block id Gb reads an
-    all-FAR sentinel block (zero weight in float32 dim 3).  Per-target sums
+    all-FAR sentinel block (zero weight in float32 dim 3, ~5e-19 a slot in
+    dim 2, as in the reference's sum).  Per-target sums
     accumulate with a sorted index_add_."""
     Gb, CB, dim = pos.shape
     C = CB // nsub

@@ -21,10 +21,11 @@ evaluation the collectives are:
 The reference processes each hop with a jnp scan against the visiting
 block, a shape made for ``ppermute`` inside one XLA program.  The port does
 not carry that over: its near field is the Hopper P2P kernel
-(``ops.fmm.p2p_cuda``; the plain version on CPU tensors), whose contract is
+(``ops.fmm.p2p_cuda``, dims 2 and 3; the plain version on CPU tensors),
+whose contract is
 one position array that is both targets and sources plus a per-sub-leaf
 CSR.  So a rank concatenates ``[own blocks | visiting blocks of the hops
-present]`` into one [Glb * (1 + n_halo), CB, 3] array, and at list time
+present]`` into one [Glb * (1 + n_halo), CB, dim] array, and at list time
 (:meth:`PShardedKdFmm.localize`) builds one CSR from its rows of the hop
 lists: the rows are its own Gl sub-leaves (the halo's rows have degree 0)
 and the entries name source blocks by their index in the concatenation.
@@ -85,7 +86,7 @@ class PShardLocal(NamedTuple):
     m2l_val: torch.Tensor
     m2l_gtgt: torch.Tensor
     # the CSR's entries as a padded flat list for the plain near-field sum
-    # (dim 2, or a CPU rank; else empty): the target row of each entry,
+    # (a CPU rank; else empty): the target row of each entry,
     # Gl * (1 + n_halo) at a pad, and the packed entry, 0 at a pad
     p2p_tgt: torch.Tensor             # [Ke] int32
     p2p_src: torch.Tensor             # [Ke] int32
@@ -268,14 +269,14 @@ class PShardedKdFmm:
                  device) -> PShardLocal:
         """This rank's rows of `lists` on `device`, with its near-field
         CSR, and the CSR's padded entry list where the plain near-field
-        sum reads it (dim 2, or a CPU device); kept for the `lists` object
-        it was made from.  Host work, once a list adoption."""
+        sum reads it (a CPU device); kept for the `lists` object it was
+        made from.  Host work, once a list adoption."""
         if self._local[0] is lists:
             return self._local[1]
         d = self.rank
         device = torch.device(device)
         halo, row_ptr, col2d = local_csr(self.eng, lists, hops, self.ndev, d)
-        if self.eng.dim == 3 and device.type != "cpu":
+        if device.type != "cpu":
             tgt = ent = np.zeros(0, np.int32)      # the kernel reads the CSR
         else:
             tgt, ent = local_entries(self.eng, row_ptr, col2d)
@@ -349,12 +350,12 @@ class PShardedKdFmm:
                     loc: PShardLocal) -> torch.Tensor:
         """Near field of the rank's own blocks [Glb, CB, dim], unscaled,
         from :meth:`halo_blocks`: one pass over the concatenation.  The
-        Hopper kernel on the CSR for a CUDA tensor in dim 3; else (dim 2 on
-        every device, as the single-device ``_stage_p2p``; or a CPU tensor)
-        the plain sum over the padded entry list, whose shapes never depend
-        on the data.  Bitwise the plain sum over the CSR."""
+        Hopper kernel on the CSR for a CUDA tensor, in dim 2 or 3 (as the
+        single-device ``_stage_p2p``); the plain sum over the padded entry
+        list for a CPU tensor, whose shapes never depend on the data and
+        which is bitwise the plain sum over the CSR."""
         eng = self.eng
-        if eng.dim == 3 and cat.device.type != "cpu":
+        if cat.device.type != "cpu":
             near = p2p_cuda.p2p(cat, loc.row_ptr, loc.col2d, eng.nsub,
                                 eng.config.eps2)
         else:

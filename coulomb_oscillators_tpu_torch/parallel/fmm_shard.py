@@ -14,7 +14,8 @@ Two differences from the reference, both forced by the port's engine:
     *rows* are split: rank d keeps the degrees of a contiguous run of
     sub-leaf rows (runs balanced by partner-entry count) and zero degrees
     elsewhere.  The unchanged near-field pass (the Hopper P2P kernel on
-    CUDA tensors) then returns zeros outside the rank's run, and the sum
+    CUDA tensors, in dims 2 and 3; the plain version on CPU tensors) then
+    returns zeros outside the rank's run, and the sum
     over ranks is the whole near field;
   * the grouped M2L has no per-entry fallback, so the entry list is split
     on group boundaries: :func:`pad_pairs_for_mesh` pads it to a multiple
@@ -98,8 +99,7 @@ def make_sharded_force(eng: KdFmmEngine, mesh: Mesh, axis: str = "dp"):
         # sharded near-field rows + sum of the block accumulator: the CSR
         # (whose rows are sharded), not the engine's pair-list stage
         pblk = ppad.reshape(eng.G_blk, eng.C_blk, eng.dim).contiguous()
-        fn = p2p_cuda.p2p if eng.dim == 3 else p2p_cuda.p2p_plain
-        near_pad = mesh.all_reduce_sum(fn(
+        near_pad = mesh.all_reduce_sum(p2p_cuda.p2p(
             pblk, fs_d.p2p_row_ptr, fs_d.p2p_col2d, eng.nsub,
             eng.config.eps2).reshape(ppad.shape))
         acc_pad = (far_pad + near_pad) * eng._kappa(pos.dtype)

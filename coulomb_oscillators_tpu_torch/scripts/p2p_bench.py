@@ -1,12 +1,18 @@
-"""Time the P2P kernel at N = 1M beside its bounds, on the card.
+"""Time the P2P kernel beside its bounds, on the card, in dims 3 and 2.
 
-The cases are chip_smoke.py phase 3's four engines on the README's
-Gaussian beam (p = 6, r = 1.67, seed 0: the default engine, sub_depth = 0,
-dens_inhom = 0.25 and tree_L = 10) and phase 10's float64 engine (the
-uniform box, p = 5, r = 2, Morton sort).  For each case: the work counted
-from the inputs (``p2p_cuda.pair_counts``), the bounds
-(``utils.roofline.bound``), the kernel's time with its heavy-first block
-order and in grid order, and its deviation from the plain version.
+The 3D cases are at N = 1M: chip_smoke.py phase 3's four engines on the
+README's Gaussian beam (p = 6, r = 1.67, seed 0: the default engine,
+sub_depth = 0, dens_inhom = 0.25 and tree_L = 10) and phase 10's float64
+engine (the uniform box, p = 5, r = 2, Morton sort).  The 2D cases run
+``fmm2_kd`` at ladder row 2's configuration (p = 4, r = 2, the 2D
+Gaussian beam with x_std = X_STD[:2], u = omega0 x x_std, seed 0): at
+N = 100k in float32 (``fmm2_kd``) and float64 (``fmm2_kd_float64``), and
+the same beam at N = 1M in float32 (``fmm2_kd_1M``).  For each case: the
+work counted from the inputs (``p2p_cuda.pair_counts``), the bounds
+(``utils.roofline.bound``: in 2D the rsqrt rate bounds float32), the
+kernel's time with its heavy-first block order and in grid order, the
+plain version's time, and the kernel's deviation from the plain
+version.
 
     python -m coulomb_oscillators_tpu_torch.scripts.p2p_bench \\
         [--baseline OTHER.cu] [--agree-n 10000000] [--out FILE]
@@ -15,7 +21,8 @@ order and in grid order, and its deviation from the plain version.
 the block-order argument in its C entry points, as its source declares)
 and times it on the same inputs in turns with this one (base, new, new,
 base), and holds the two against each other; the rows name it by its
-file name.  nvidia-smi's SM clock and power draw are sampled while a case
+file name.  A baseline without dim-2 entry points sits out the 2D
+cases.  nvidia-smi's SM clock and power draw are sampled while a case
 is timed.  ``--agree-n`` also runs the default engine's case
 at that N (the kernel against the plain version, and timed).  Prints one
 JSON row per case and the card's name and power limit; runs on a CUDA
@@ -53,32 +60,39 @@ def cuda_ms(fn, reps):
 
 
 def _rel_dev(a, b):
-    d = torch.linalg.vector_norm((a - b).reshape(-1, 3), dim=1).max()
-    return float(d / torch.linalg.vector_norm(b.reshape(-1, 3), dim=1).max())
+    dim = b.shape[-1]
+    d = torch.linalg.vector_norm((a - b).reshape(-1, dim), dim=1).max()
+    return float(d / torch.linalg.vector_norm(b.reshape(-1, dim),
+                                              dim=1).max())
 
 
 def _baseline(path):
     """The launcher of another build of the kernel: its C entry points take
     a block order if its source declares one, else none (the earlier
-    kernel's interface)."""
+    kernel's interface); it takes dim 2 if the source has the dim-2 entry
+    points (``dims`` on the returned launcher says which dims)."""
     from coulomb_oscillators_tpu_torch import native
     from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
     with open(path) as f:
-        ordered = "const int32_t* order" in f.read()
+        src = f.read()
+    ordered = "const int32_t* order" in src
+    dims = (2, 3) if "co_p2p_launch_2d" in src else (3,)
     so, _ = native.build_library(path, "co_p2p_base",
                                  [native.nvcc()] + native.NVCC_FLAGS)
     lib = ctypes.CDLL(so)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for fn, eps in ((lib.co_p2p_launch, ctypes.c_float),
-                    (lib.co_p2p_launch_f64, ctypes.c_double)):
+    for (dim, dtype), name in p2p_cuda._ENTRY.items():
+        if dim not in dims:
+            continue
+        fn = getattr(lib, name)
+        eps = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
         fn.argtypes = [vp] * (5 if ordered else 4) + [ci] * 4 + [eps, vp]
         fn.restype = ci
 
     def run(pblk, rp, col, nsub, eps2):
-        Gb, CB, _ = pblk.shape
+        Gb, CB, dim = pblk.shape
         out = torch.empty_like(pblk)
-        fn = (lib.co_p2p_launch if pblk.dtype == torch.float32
-              else lib.co_p2p_launch_f64)
+        fn = getattr(lib, p2p_cuda._ENTRY[dim, pblk.dtype])
         order = ([p2p_cuda.block_order(rp, Gb, CB, nsub,
                                        col.shape[1]).data_ptr()]
                  if ordered else [])
@@ -88,6 +102,7 @@ def _baseline(path):
         if rc:
             raise RuntimeError(f"{path}: launch failed: cudaError_t {rc}")
         return out
+    run.dims = dims
     return run
 
 
@@ -131,10 +146,25 @@ class Clocks:
                     power_w_median=float(np.median(a[:, 1])))
 
 
+# each case's N: the 3D cases at 1M, fmm2_kd at ladder row 2's 100k and at
+# 1M
+CASE_N = {"fmm2_kd": 100_000, "fmm2_kd_float64": 100_000}
+
+
 def _engine(name, n):
     from coulomb_oscillators_tpu_torch import SimConfig
     from coulomb_oscillators_tpu_torch.models import init_dist as ID
     from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import KdFmmEngine
+    if name.startswith("fmm2_kd"):
+        cfg = SimConfig(dim=2, omega0=(1.095, 1.0), fmm_order=4,
+                        tree_radius=2.0,
+                        precision="float64" if "float64" in name
+                        else "float32")
+        u = tuple(w * x for w, x in zip(cfg.omega0, X_STD[:2]))
+        pos, _ = ID.init_gaussian(n, X_STD[:2], u, dim=2, seed=0)
+        if "float64" in name:
+            pos = pos.astype(np.float64)
+        return cfg, KdFmmEngine(cfg, n), pos
     if name == "float64":
         cfg = SimConfig(fmm_order=5, tree_radius=2.0, precision="float64")
         pos = ID.init_uniform(n, (-0.01,) * 3, (0.01,) * 3).astype(np.float64)
@@ -160,18 +190,23 @@ def case(name, n, dev, bases=(), reps=10):
     pos = torch.from_numpy(pos_h).to(dev)
     fs = eng.build(pos)
     pblk = eng.pad_array(pos, fs, fill=FAR).reshape(
-        eng.G_blk, eng.C_blk, 3).contiguous()
+        eng.G_blk, eng.C_blk, cfg.dim).contiguous()
     args = (pblk, fs.p2p_row_ptr, fs.p2p_col2d, eng.nsub, cfg.eps2)
     double = pblk.dtype == torch.float64
     counts = p2p_cuda.pair_counts(*args[:4])
-    b = roofline.bound(counts["real_pairs"], counts["bytes"], double=double)
-    row = dict(case=name, n=n, dtype=str(pblk.dtype).split(".")[-1],
-               Gb=eng.G_blk, CB=eng.C_blk, nsub=eng.nsub,
-               dmax=fs.p2p_col2d.shape[1], **counts, **b)
+    b = roofline.bound(counts["real_pairs"], counts["bytes"], dim=cfg.dim,
+                       double=double)
+    row = dict(case=name, n=n, dim=cfg.dim,
+               dtype=str(pblk.dtype).split(".")[-1], Gb=eng.G_blk,
+               CB=eng.C_blk, nsub=eng.nsub, dmax=fs.p2p_col2d.shape[1],
+               **counts, **b)
     got = p2p_cuda.p2p(*args)
     row["rel_dev_plain"] = _rel_dev(got, p2p_cuda.p2p_plain(*args))
+    row["plain_ms"] = cuda_ms(lambda: p2p_cuda.p2p_plain(*args),
+                              max(1, reps // 10))
     kern = [lambda: p2p_cuda.p2p(*args),
             lambda: p2p_cuda.launch(*args, order=None)]
+    bases = [(bname, run) for bname, run in bases if cfg.dim in run.dims]
     for bname, run in bases:
         row[f"rel_dev_{bname}"] = _rel_dev(run(*args), got)
         kern.append(lambda run=run: run(*args))
@@ -199,7 +234,8 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", action="append", default=[])
     ap.add_argument("--agree-n", type=int, default=0)
     ap.add_argument("--cases", default="default,sub_depth=0,"
-                    "dens_inhom=0.25,tree_L=10,float64")
+                    "dens_inhom=0.25,tree_L=10,float64,fmm2_kd,"
+                    "fmm2_kd_float64,fmm2_kd_1M")
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -213,7 +249,7 @@ def main(argv=None) -> int:
              for p in a.baseline]
     rows = []
     for name in a.cases.split(","):
-        row = case(name, 1_000_000, dev, bases,
+        row = case(name, CASE_N.get(name, 1_000_000), dev, bases,
                    reps=3 if name == "float64" else 10)
         row["card"] = smi
         print(json.dumps(row), flush=True)

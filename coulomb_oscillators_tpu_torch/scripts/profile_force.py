@@ -24,8 +24,10 @@ Usage:
   mode: nothing (print the rows), `artifact` (also write the JSON record
   to --out), `all` (the rows of fmm3_kd at N, fmm2_kd at N=100k and fmm3,
   fmm3_traceless, appel at N on the uniform box), `trace` (3 padded force
-  calls under the profiler, the device-kernel histogram per call),
-  `prodtrace` (one production window of the Simulator under the profiler:
+  calls of --engine, fmm3_kd or fmm2_kd, under the profiler, the
+  device-kernel histogram per call),
+  `prodtrace` (one production window of the Simulator of --engine,
+  fmm3_kd or fmm2_kd, under the profiler:
   device ms/step against wall ms/step, with the steps as CUDA graphs and
   then eagerly (the record's ``eager``); cadence via env CO_TS / CO_RESORT
   / CO_PIPE, default 16/2/2).
@@ -172,8 +174,8 @@ def profile_engine(engine: str, n: int, p: int, r: float, device,
         # tile lane-pairs: each (sub-leaf, block) tile is C x C_blk
         q = int(st.p2p_valid.sum())
         out["p2p_tiles"] = q
-        out["p2p_kind"] = ("cuda kernel" if cfg.dim == 3
-                           and pos.device.type == "cuda" else "plain")
+        out["p2p_kind"] = ("cuda kernel" if pos.device.type == "cuda"
+                           else "plain")
         out["p2p_G_lane_int_per_s"] = (q * eng.st.C * eng.C_blk
                                        / record["p2p_ms"] / 1e6)
         # the near field's share of the work a Simulator step repeats
@@ -222,14 +224,15 @@ def print_record(rec: dict) -> None:
 
 
 def trace_force(n: int, p: int, r: float, device, logdir: str,
-                calls: int = 3) -> dict:
-    """`calls` chained padded force calls of ``fmm3_kd`` under the
-    profiler; the device-kernel histogram in ms per call."""
+                calls: int = 3, engine: str = "fmm3_kd") -> dict:
+    """`calls` chained padded force calls of the kd `engine` (``fmm3_kd``
+    or ``fmm2_kd``) under the profiler; the device-kernel histogram in ms
+    per call."""
     from coulomb_oscillators_tpu_torch.ops.fmm import make_engine_object
     from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR
-    cfg = _config("fmm3_kd", p, r)
-    pos = torch.from_numpy(_positions("fmm3_kd", n, cfg)).to(device)
-    eng = make_engine_object(cfg, n, "fmm3_kd")
+    cfg = _config(engine, p, r)
+    pos = torch.from_numpy(_positions(engine, n, cfg)).to(device)
+    eng = make_engine_object(cfg, n, engine)
     fs = eng.build(pos)
     x = eng.pad_array(pos, fs, fill=FAR)
     x = x + eng.force_padded(x, fs) * 1e-30          # warm-up
@@ -241,15 +244,18 @@ def trace_force(n: int, p: int, r: float, device, logdir: str,
     hist = prof.op_histogram(logdir, top=None)
     tot = sum(hist.values())
     return {"metric": "padded_force_kernel_histogram", "calls": calls,
-            "config": {"n": n, "p": p, "r": r},
+            "config": {"engine": engine, "n": n, "p": p, "r": r},
             "device": C.device_info(device),
             "device_ms_per_call": tot / calls,
             "kernels_ms_per_call": {k: v / calls for k, v in hist.items()}}
 
 
 def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
-               resort: int = 2, pipeline: int = 2, graphs=None) -> dict:
-    """One production reuse window of the Simulator under the profiler:
+               resort: int = 2, pipeline: int = 2, graphs=None,
+               engine: str = "fmm3_kd") -> dict:
+    """One production reuse window of the kd `engine`'s Simulator
+    (``fmm3_kd`` on the production beam, or ``fmm2_kd`` on its first two
+    axes with ladder row 2's omega0) under the profiler:
     device ms/step (the sum of the kernels' durations) against the wall
     ms/step of the untraced window before it, and the kernels by name per
     step.  `graphs` True or False runs the steps as CUDA graphs or eagerly
@@ -260,10 +266,18 @@ def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
         cadence_config)
     from coulomb_oscillators_tpu_torch.simulate import Simulator
     from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
-    cfg = cadence_config(p, r, ts, resort, pipeline)
-    pos_h, vel_h = C.beam(n, cfg)
+    if engine == "fmm2_kd":
+        from coulomb_oscillators_tpu_torch.models import init_dist as ID
+        cfg = cadence_config(p, r, ts, resort, pipeline, dim=2,
+                             omega0=(1.095, 1.0))
+        u = tuple(w * x for w, x in zip(cfg.omega0, C.X_STD[:2]))
+        pos_h, vel_h = ID.init_gaussian(n, C.X_STD[:2], u, dim=2,
+                                        dtype=np.float32)
+    else:
+        cfg = cadence_config(p, r, ts, resort, pipeline)
+        pos_h, vel_h = C.beam(n, cfg)
     with C.graphs_env(graphs):
-        sim = Simulator(cfg, n, engine="fmm3_kd")
+        sim = Simulator(cfg, n, engine=engine)
     cuda = torch.device(device).type == "cuda"
     try:
         st = sim.init_acc(particle_state_from_numpy(pos_h, vel_h,
@@ -296,7 +310,7 @@ def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
     tot = sum(hist.values())
     top = dict(list(hist.items())[:40])
     return {"metric": "production_window_trace",
-            "config": {"n": n, "p": p, "r": r, "ts": ts,
+            "config": {"engine": engine, "n": n, "p": p, "r": r, "ts": ts,
                        "resort_every": resort, "pipeline": pipeline,
                        "stale_margin": margin},
             "device": C.device_info(device), "window_wall_s": wall,
@@ -344,8 +358,10 @@ def main(argv=None) -> int:
     device = C.pick_device(a.device)
     with tempfile.TemporaryDirectory() as tmp:
         logdir = a.logdir or tmp
+        if mode in ("trace", "prodtrace") and not a.engine.endswith("_kd"):
+            ap.error(f"{mode} takes --engine fmm3_kd or fmm2_kd")
         if mode == "trace":
-            out = trace_force(n, p, r, device, logdir)
+            out = trace_force(n, p, r, device, logdir, engine=a.engine)
             print_histogram(out, "call", "kernels_ms_per_call")
         elif mode == "prodtrace":
             # the steps as CUDA graphs (a user's run), then eagerly
@@ -353,7 +369,8 @@ def main(argv=None) -> int:
                    int(os.environ.get("CO_RESORT", "2")),
                    int(os.environ.get("CO_PIPE", "2")))
             recs = [prod_trace(n, p, r, device,
-                               os.path.join(logdir, tag), *cad, graphs=g)
+                               os.path.join(logdir, tag), *cad, graphs=g,
+                               engine=a.engine)
                     for tag, g in (("graph", True), ("eager", False))]
             out = dict(recs[0], eager=recs[1])
             for rec in recs:

@@ -115,6 +115,39 @@ def test_plain_p2p_matches_reference_scan(built):
     assert dev <= 1e-5, dev
 
 
+@pytest.mark.parametrize("n,p", [(1500, 3), (4096, 4)],
+                         ids=["n1500p3", "n4096p4"])
+def test_plain_p2p_matches_reference_scan_2d(n, p):
+    """The dim-2 twin of test_plain_p2p_matches_reference_scan on the 2D
+    Gaussian beam (fmm2_kd's config): the port's plain CSR sum (the
+    wrapper on a CPU tensor) and its pair-list sum (``_stage_p2p``), each
+    against the reference's jnp scan with weight r^2 on the same padded
+    positions and state, within 1e-5 of max|a|.  The reference engine is
+    built with use_pallas=True, so that its lane-quantum layout equals the
+    port's, then switched to its scan branch."""
+    cfg = dict(dim=2, omega0=(1.095, 1.0), fmm_order=p, tree_radius=2.0)
+    u = tuple(w * x for w, x in zip(cfg["omega0"], X_STD[:2]))
+    pos, _ = ID.init_gaussian(n, X_STD[:2], u, dim=2)
+    jeng = JEngine(JConfig(**cfg), n, use_pallas=True)
+    jfs = jeng.build(jnp.asarray(pos))
+    ppad_j = jeng.pad_array(jnp.asarray(pos), jfs, fill=JFAR)
+    jeng.use_pallas = False            # the scan branch, same layout
+    ref = np.asarray(jeng._stage_p2p(ppad_j, jfs))
+    teng = KdFmmEngine(TConfig(**cfg), n)
+    fs = fmm_state_from_numpy(_np_state(jfs), "cpu")
+    ppad = torch.tensor(np.asarray(ppad_j))
+    for a in ("G_blk", "C_blk", "mask_shift"):
+        assert getattr(teng, a) == getattr(jeng, a), a
+    pblk = ppad.reshape(teng.G_blk, teng.C_blk, 2)
+    csr = p2p_cuda.p2p(pblk, fs.p2p_row_ptr, fs.p2p_col2d, teng.nsub,
+                       teng.config.eps2).reshape(ref.shape).numpy()
+    listed = teng._stage_p2p(ppad, fs).numpy()
+    scale = np.linalg.norm(ref, axis=-1).max()
+    for got in (csr, listed):
+        dev = np.linalg.norm(got - ref, axis=-1).max() / scale
+        assert dev <= 1e-5, dev
+
+
 def test_padding_and_repad_match(built):
     jeng, teng = built["jeng"], built["teng"]
     jfs, tfs = built["jfs"], built["tfs"]
@@ -264,20 +297,26 @@ def test_auto_level_and_engine_registry():
 
 
 def test_p2p_wrapper_checks_its_inputs():
+    """The wrapper takes [Gb, CB, 3] and [Gb, CB, 2] in float32 and
+    float64 (the kernel's four instantiations; the plain version here)
+    and raises on any other type, last dim or list layout."""
     pos = torch.zeros(4, 128, 3)
     rp = torch.zeros(17, dtype=torch.int32)
     col = torch.zeros(16, 128, dtype=torch.int32)
     assert p2p_cuda.p2p(pos, rp, col, 4, 1e-18).shape == pos.shape
     assert p2p_cuda.p2p(pos.double(), rp, col, 4, 1e-18).dtype == \
         torch.float64
+    assert p2p_cuda.p2p(pos[..., :2].contiguous(), rp, col, 4,
+                        1e-18).shape == (4, 128, 2)
     with pytest.raises(ValueError):
         p2p_cuda.p2p(pos.half(), rp, col, 4, 1e-18)
     with pytest.raises(ValueError):
         p2p_cuda.p2p(pos, rp[:-1], col, 4, 1e-18)
     with pytest.raises(ValueError):
         p2p_cuda.p2p(pos, rp, col.long(), 4, 1e-18)
-    with pytest.raises(ValueError):
-        p2p_cuda.p2p(pos[..., :2], rp, col, 4, 1e-18)
+    for last in (1, 4):
+        with pytest.raises(ValueError):
+            p2p_cuda.p2p(torch.zeros(4, 128, last), rp, col, 4, 1e-18)
 
 
 def test_plain_p2p_sentinel_and_masks():

@@ -16,7 +16,7 @@ tests/torch_parallel_workers.py), with the capture lint's recorder
     adopted background re-sort, for fmm3_kd and fmm2_kd;
   * the re-capture vote is true on both ranks when only one rank's capture
     key changed;
-  * the near field's padded entry list (what dim 2 and CPU ranks sum) is
+  * the near field's padded entry list (what CPU ranks sum) is
     bitwise the plain sum over the rank's CSR.
 
 No JAX.

@@ -211,7 +211,7 @@ def test_profile_force_kd_rows(engine, p, r):
     assert s["whole_ms"] == rows["force_padded_ms"]
     assert s["sum_ms"] == pytest.approx(sum(rows[k] for k in PF.KD_STAGES))
     assert sum(s["share"].values()) == pytest.approx(1.0)
-    assert rec["p2p_kind"] == "plain"        # a CPU tensor, or dim 2
+    assert rec["p2p_kind"] == "plain"        # a CPU tensor, in either dim
     assert rec["p2p_tiles"] > 0 and rec["p2p_G_lane_int_per_s"] > 0
     assert 0 < rec["p2p_share_of_refresh_plus_force"] \
         < rec["p2p_share_of_padded_force"]
@@ -234,6 +234,25 @@ def test_profile_force_grid_rows(engine, stages):
     assert rec["summary"]["whole_ms"] == rec["stages_ms"]["force_full_ms"]
     assert rec["config"]["cell_cap"] > 0
     json.dumps(rec)
+
+
+def test_profile_force_fmm2_kd_traces(tmp_path):
+    """trace and prodtrace of fmm2_kd on --device cpu: the records name
+    the engine, the window runs in 2D and, with no card, no kernel shows
+    in the device histograms."""
+    assert PF.main(["trace", "1024", "3", "2.0", "--engine", "fmm2_kd",
+                    "--device", "cpu", "--out",
+                    str(tmp_path / "tr.json")]) == 0
+    tr = json.loads((tmp_path / "tr.json").read_text())
+    assert tr["config"]["engine"] == "fmm2_kd"
+    assert tr["kernels_ms_per_call"] == {}
+    rec = PF.prod_trace(1024, 3, 2.0, torch.device("cpu"),
+                        str(tmp_path / "pt"), ts=4, resort=1, pipeline=1,
+                        graphs=False, engine="fmm2_kd")
+    assert rec["config"]["engine"] == "fmm2_kd" and rec["config"]["ts"] == 4
+    assert rec["wall_ms_per_step"] > 0 and rec["graphs"] is False
+    with pytest.raises(SystemExit):
+        PF.main(["trace", "1024", "--engine", "fmm3", "--device", "cpu"])
 
 
 def test_profile_force_cli_modes(tmp_path, capsys, monkeypatch):

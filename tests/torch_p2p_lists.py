@@ -8,8 +8,8 @@ FAR = 1e18
 
 
 def synthetic(nsub, CB, Gb=6, dtype=np.float32, seed=0, deg_hi=6,
-              long_row=0):
-    """(pos [Gb, CB, 3], row_ptr [Gb*nsub+1] int32, col2d [Gb*nsub, dmax]
+              long_row=0, dim=3):
+    """(pos [Gb, CB, dim], row_ptr [Gb*nsub+1] int32, col2d [Gb*nsub, dmax]
     int32) with FAR pads trailing each sub-leaf (one sub-leaf full, one all
     pads), a row of degree 0, a full row holding every lane-group mask 0
     .. 2^nsub - 1 of block 0, a row of degree `long_row` (if set), a row
@@ -19,12 +19,12 @@ def synthetic(nsub, CB, Gb=6, dtype=np.float32, seed=0, deg_hi=6,
     rng = np.random.default_rng(seed)
     C = CB // nsub
     G = Gb * nsub
-    pos = rng.normal(scale=0.01, size=(Gb, nsub, C, 3))
+    pos = rng.normal(scale=0.01, size=(Gb, nsub, C, dim))
     nreal = rng.integers(0, C + 1, size=(Gb, nsub))
     nreal[0, 0] = nreal[1 // nsub, 1 % nsub] = C
     nreal[-1, -1] = 0
     pos[np.arange(C)[None, None, :] >= nreal[..., None]] = FAR
-    pos = pos.reshape(Gb, CB, 3).astype(dtype)
+    pos = pos.reshape(Gb, CB, dim).astype(dtype)
     masks = np.arange(1 << nsub, dtype=np.uint64)
     deg = rng.integers(0, deg_hi + 1, size=G)
     deg[0] = 0
@@ -43,13 +43,14 @@ def synthetic(nsub, CB, Gb=6, dtype=np.float32, seed=0, deg_hi=6,
 
 
 def brute(pos, row_ptr, col2d, nsub, eps2):
-    """The near-field sum in float64, one partner entry at a time."""
-    Gb, CB, _ = pos.shape
+    """The near-field sum in float64, one partner entry at a time: weight
+    r^3 in dim 3, r^2 in dim 2."""
+    Gb, CB, dim = pos.shape
     C = CB // nsub
     shift = 32 - nsub
     p = pos.astype(np.float64)
-    src = np.concatenate([p, np.full((1, CB, 3), FAR)])
-    tgt = p.reshape(Gb * nsub, C, 3)
+    src = np.concatenate([p, np.full((1, CB, dim), FAR)])
+    tgt = p.reshape(Gb * nsub, C, dim)
     out = np.zeros_like(tgt)
     cols = col2d.view(np.uint32)
     for row in range(Gb * nsub):
@@ -59,15 +60,18 @@ def brute(pos, row_ptr, col2d, nsub, eps2):
             groups = [q for q in range(nsub) if (bits >> q) & 1]
             if not groups:
                 continue
-            s = src[blk].reshape(nsub, C, 3)[groups].reshape(-1, 3)
+            s = src[blk].reshape(nsub, C, dim)[groups].reshape(-1, dim)
             d = tgt[row][:, None, :] - s[None, :, :]
             r = 1.0 / np.sqrt(eps2 + (d * d).sum(-1))
-            out[row] += (d * (r * r * r)[..., None]).sum(1)
-    return out.reshape(Gb, CB, 3)
+            w = r * r * r if dim == 3 else r * r
+            out[row] += (d * w[..., None]).sum(1)
+    return out.reshape(Gb, CB, dim)
 
 
 def rel_dev(got, ref):
     """max row-norm of got - ref over the max row-norm of ref."""
-    d = np.linalg.norm((np.asarray(got, np.float64) - ref).reshape(-1, 3),
+    dim = ref.shape[-1]
+    d = np.linalg.norm((np.asarray(got, np.float64) - ref).reshape(-1, dim),
                        axis=1)
-    return float(d.max() / np.linalg.norm(ref.reshape(-1, 3), axis=1).max())
+    return float(d.max() / np.linalg.norm(ref.reshape(-1, dim),
+                                          axis=1).max())
