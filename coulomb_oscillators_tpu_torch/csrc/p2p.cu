@@ -1,14 +1,11 @@
 // Near-field (P2P) pass of the kd-tree FMM, hand-written for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py,
-// in both of their dims: _p2p_kernel (p2p_leaf_pairs, the VMEM-resident
-// form) and _p2p_stream_kernel (p2p_leaf_pairs_streaming, the HBM-streaming
-// form), whose bodies weigh a pair by r^3 in dim 3 and r^2 in dim 2 (their
-// `dim` argument; the `w = r*r*r if dim == 3 else r*r` lines).  Here `DIM`
-// is a template parameter beside the type: four instantiations, float and
-// double in dims 3 and 2, one C entry point each (end of file).
-// On Hopper the two TPU kernels are one kernel: no SM's shared memory holds
-// every source,
+// Replaces two TPU kernels of coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py
+// in dim 3 (weight r^3): _p2p_kernel (p2p_leaf_pairs, the VMEM-resident
+// form) and _p2p_stream_kernel (p2p_leaf_pairs_streaming, the
+// HBM-streaming form).  Their dim-2 bodies (weight r^2) are csrc/p2p2d.cu,
+// designed for fmm2_kd's short, skewed rows.
+// On Hopper they are one kernel: no SM's shared memory holds every source,
 // so partner blocks are gathered from global memory through L2 (the block
 // coordinates are 12 MB at N = 1M and stay in the 50 MB L2).
 //
@@ -75,40 +72,17 @@
 // it; so the block's 4 sub-leaves (which fetch each shared partner block
 // ~3 times) do not share their staging.
 //
-// Dim 2.  The same design with DIM = 2: positions stay interleaved,
-// [Gb, CB, 2]; a 4-source packet is 8 values (two 16-byte shared loads in
-// float, four in double), a lane group C * 2 values, still a whole number
-// of 16-byte copies since C is a multiple of 32; the ring, the warp shares
-// and the targets hold 2/3 of the 3D values.  The pair is d2 = dx^2 + dy^2
-// + eps2 (two FFMA), r = rsqrt(d2), w = r*r, and two FFMA into the sums:
-// ~8 instructions a pair against ~13 in 3D, one of them the MUFU.RSQ.  So
-// dim 2 is bound by the special-function units (one rsqrt a pair at 132 x
-// 16 a clock, 1 / 4.18e12 s), not by the flops (14 a pair at 67 TFLOP/s,
-// 1 / 4.79e12 s; utils/roofline.py).  Measured (NVIDIA H100 80GB HBM3,
-// 700 W; scripts/p2p_bench.py, PERF.md): fmm2_kd's state at N = 100k
-// (59,648 entries, 9.29e7 real pairs) takes 0.17 ms in grid order, 0.27
-// ms with the heavy-first sort, ~8-13% of its 0.022 ms bound, and 1.0 ms
-// at N = 1M (18%): its rows are short (39-58 entries a block against 268
-// in the 3D main case), so per-block work weighs more than the pairs.
-//
-// Pads.  Pad slots sit at FAR = 1e18 and trail each sub-leaf.  In float
-// dim 3 a pad source's weight underflows to exactly 0 for every real
-// target: d2 ~ 3e36, r ~ 5.8e-19, r*r = 3.3e-37 (normal) and r*r*r ~ 2e-55
-// flushes to 0 (below the least denormal, ftz or not), and d * w = -1e18 *
-// 0 = -0: d is finite and w <= eps2^-1.5 = 1e27 at the default eps = 1e-9,
-// so inf * 0 never forms.  In float dim 2 the weight is r*r: d2 = 2e36
-// (both coordinates at FAR), w = 5e-37, still normal, so a pad source adds
-// d * w ~ -5e-19 to a real target, as in the reference's sum; that term
-// is ~25 orders of magnitude below a real target's near field, far below
-// its float32 resolution.  So the float instantiations skip a 4-source
-// packet whose four x are >= kPadX, and a 32-target tile whose targets all
-// are (a pad target's sum, dropped by every caller, is exactly 0 in dim 3:
-// d = 0 against pads, w = 0 against real sources; in dim 2 it is ~5e-19
-// a real source).  In dim 3 neither changes a result; in dim 2 each drops
-// terms of at most ~5e-19, which the float sum of a real target could not
-// hold.  In double r^3 of a pad is 1e-54 (r^2 5e-37) and does not
-// underflow: each pad source adds ~1e-36 in dim 3 (~5e-19 in dim 2), as
-// the reference's sum does, so double skips nothing.
+// Pads.  Pad slots sit at FAR = 1e18 and trail each sub-leaf.  In float a
+// pad source's weight underflows to exactly 0 for every real target: d2 ~
+// 3e36, r ~ 5.8e-19, r*r = 3.3e-37 (normal) and r*r*r ~ 2e-55 flushes to 0
+// (below the least denormal, ftz or not), and d * w = -1e18 * 0 = -0: d is
+// finite and w <= eps2^-1.5 = 1e27 at the default eps = 1e-9, so inf * 0
+// never forms.  So the float instantiation skips a 4-source packet whose
+// four x are >= kPadX, and a 32-target tile whose targets all are (a pad
+// target's sum is exactly 0 there: d = 0 against pads, w = 0 against real
+// sources).  Neither changes a result.  In double r^3 of a pad is 1e-54
+// and does not underflow: each pad source adds ~1e-36, as the reference's
+// sum does, so double skips nothing.
 //
 // Sums.  Each lane sums each partner entry (all chunks of one partner
 // block) into a partial and adds the partials in partner order: one
@@ -118,16 +92,12 @@
 // `order` or on timing.
 //
 // Registers and shared memory: __launch_bounds__(256, 2) in float (122
-// registers in dim 3, no spill) and (256, 3) in double (80 registers and
-// ~100-280 bytes of spill in dim 3, faster than 2 blocks without spills).
-// Dim 2 keeps them: its float instantiations take 111 (one unit a block)
-// and 121 registers, no spill, so a third resident float block would need
-// <= 85 and spills; its double ones 80 registers with 8 and 112 bytes of
-// spill, less than dim 3's (nvcc -Xptxas -v on the H100 machine prints
-// every instantiation, and chip_smoke phase 2 shows them).  Shared
-// memory per block: the rings, 8 x 128 x DIM values of warp shares and the
-// 128 targets: 49.5 KB in float and 51 KB in double in dim 3, 33 KB and 34
-// KB in dim 2, set as the kernel's dynamic limit before each launch.
+// registers, no spill) and (256, 3) in double (80 registers and ~200-300
+// bytes of spill, faster than 2 blocks without spills); nvcc
+// -Xptxas -v prints both, and chip_smoke phase 2 shows them.  Shared memory
+// per block: the rings, 8 x 128 x 3 values of warp shares and the 128
+// targets: 49.5 KB in float, 51 KB in double, set as the kernel's
+// dynamic limit before each launch.
 //
 // Out of scope.  Newton-3 (each pair once, for both ends) needs atomics or
 // a second pass and breaks "each target written once, deterministic".  The
@@ -137,25 +107,23 @@
 //
 // Contract (the same as the reference kernel's, without its flattened
 // [Gb, CB*8] operand):
-//   pos     [Gb, CB, DIM] float or double, DIM 2 or 3, 16-byte aligned: Gb
-//           target/source blocks of CB slots, nsub <= 8 sub-leaves of C =
-//           CB/nsub slots each, C a multiple of 32; pad slots sit at FAR =
-//           1e18 and trail each sub-leaf.
+//   pos     [Gb, CB, 3] float or double, 16-byte aligned: Gb target/source
+//           blocks of CB slots, nsub <= 8 sub-leaves of C = CB/nsub slots
+//           each, C a multiple of 32; pad slots sit at FAR = 1e18 and
+//           trail each sub-leaf.
 //   row_ptr [Gb*nsub + 1] int32: CSR degrees of each sub-leaf's partner
 //           list (a degree above dmax is clamped to dmax).
 //   col2d   [Gb*nsub, dmax] int32, read as uint32: entry = blk | bits << s,
 //           s = 32 - nsub; bit q of `bits` selects lane group q (slots
 //           [qC, (q+1)C)) of source block `blk`.  Block id Gb is the FAR
-//           sentinel, which contributes exactly zero in float dim 3 and at
-//           most ~5e-19 a slot in float dim 2; it is skipped, as are
-//           entries with no bit set.
+//           sentinel, which contributes exactly zero in float; it is
+//           skipped, as are entries with no bit set.
 //   order   [Gb * ceil(CB/min(CB,128))] int32 or null: the CUDA blocks'
 //           order of work (any permutation).
-//   out     [Gb, CB, DIM] as pos, each target written exactly once (no
+//   out     [Gb, CB, 3] as pos, each target written exactly once (no
 //           atomics), in a deterministic order.
-// Pair weight: r = rsqrt(dist2), w = r*r*r in dim 3 and r*r in dim 2.
-// Never dist2^-1.5 through dist2^3: at a FAR pad dist2 ~ 3e36 cubes to inf
-// and inf * 0 is NaN; nor dist2^-1 through a division of powers of dist2.
+// Pair weight: r = rsqrt(dist2), w = r*r*r.  Never dist2^-1.5 through
+// dist2^3: at a FAR pad dist2 ~ 3e36 cubes to inf and inf * 0 is NaN.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -172,14 +140,14 @@ template <typename T> struct Tiling;
 template <> struct Tiling<float> {
   static constexpr int kT = 4;             // targets per lane
   static constexpr int kU = 128;           // source slots per stage unit
-  static constexpr bool kSkipPads = true;  // pad terms 0 (3D), ~5e-19 (2D)
+  static constexpr bool kSkipPads = true;  // pad weights are exactly 0
   static constexpr int kMinBlocks = 2;     // resident blocks per SM
   static constexpr int kStages = 3;        // ring slots per warp
 };
 template <> struct Tiling<double> {
   static constexpr int kT = 2;
   static constexpr int kU = 64;
-  static constexpr bool kSkipPads = false; // pads add ~1e-36 (3D), ~5e-19
+  static constexpr bool kSkipPads = false; // pads add ~1e-36 each
   static constexpr int kMinBlocks = 3;
   static constexpr int kStages = 2;
 };
@@ -224,25 +192,6 @@ __device__ __forceinline__ void load4(const double* sp, double (&x)[4],
   x[2] = d.x; y[2] = d.y; z[2] = e.x;
   x[3] = e.y; y[3] = f.x; z[3] = f.y;
 }
-// four staged sources of dim 2 (x, y interleaved) as SoA
-__device__ __forceinline__ void load4(const float* sp, float (&x)[4],
-                                      float (&y)[4]) {
-  const float4* v = reinterpret_cast<const float4*>(sp);
-  const float4 a = v[0], b = v[1];
-  x[0] = a.x; y[0] = a.y;
-  x[1] = a.z; y[1] = a.w;
-  x[2] = b.x; y[2] = b.y;
-  x[3] = b.z; y[3] = b.w;
-}
-__device__ __forceinline__ void load4(const double* sp, double (&x)[4],
-                                      double (&y)[4]) {
-  const double2* v = reinterpret_cast<const double2*>(sp);
-  const double2 a = v[0], b = v[1], c = v[2], d = v[3];
-  x[0] = a.x; y[0] = a.y;
-  x[1] = b.x; y[1] = b.y;
-  x[2] = c.x; y[2] = c.y;
-  x[3] = d.x; y[3] = d.y;
-}
 
 // one stage unit: chunk `chunk` (slots [chunk*U, +U)) of source block
 // `blk` for item `item` (an entry of tile `tile`); the chunk meets lane
@@ -252,10 +201,10 @@ struct Unit {
   uint32_t blk, mask;
 };
 
-// one CUDA block: kSlots target slots [t0, t0 + kSlots) of target block g,
-// in dim DIM (2 or 3); kWhole: a source block fits one stage unit (CB <=
-// kU), the main path's case, compiled without the chunk bookkeeping
-template <typename T, int DIM, bool kWhole>
+// one CUDA block: kSlots target slots [t0, t0 + kSlots) of target block g;
+// kWhole: a source block fits one stage unit (CB <= kU), the main path's
+// case, compiled without the chunk bookkeeping
+template <typename T, bool kWhole>
 __global__ void __launch_bounds__(kThreads, Tiling<T>::kMinBlocks)
 p2p_kernel(const T* __restrict__ pos, const int32_t* __restrict__ row_ptr,
            const uint32_t* __restrict__ col2d,
@@ -265,11 +214,11 @@ p2p_kernel(const T* __restrict__ pos, const int32_t* __restrict__ row_ptr,
   constexpr int kStages = Tiling<T>::kStages;
   constexpr int LT = kTile / TT;          // lanes across a tile's targets
   constexpr int H = 32 / LT;              // ways the sources are split
-  constexpr int RING = kStages * U0 * DIM;  // one warp's ring, in values
+  constexpr int RING = kStages * U0 * 3;  // one warp's ring, in values
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);   // [kWarps][kStages][U0*DIM]
-  T* comb = ring + kWarps * RING;             // [kWarps][kSlots * DIM]
-  T* tgt_s = comb + kWarps * kSlots * DIM;    // [kSlots * DIM] targets
+  T* ring = reinterpret_cast<T*>(smem_raw);       // [kWarps][kStages][U0*3]
+  T* comb = ring + kWarps * RING;                 // [kWarps][kSlots * 3]
+  T* tgt_s = comb + kWarps * kSlots * 3;          // [kSlots * 3] targets
   __shared__ int s_pre[kMaxTiles + 1];   // prefix of the tiles' entry counts
   __shared__ int s_row[kMaxTiles];       // each tile's partner row
 
@@ -287,8 +236,8 @@ p2p_kernel(const T* __restrict__ pos, const int32_t* __restrict__ row_ptr,
 
   // the block's targets into shared memory; each tile's partner row and
   // clamped degree
-  const T* tgt = pos + (int64_t(g) * CB + t0) * DIM;
-  for (int k = threadIdx.x; k < ntile * kTile * DIM; k += kThreads)
+  const T* tgt = pos + (int64_t(g) * CB + t0) * 3;
+  for (int k = threadIdx.x; k < ntile * kTile * 3; k += kThreads)
     tgt_s[k] = tgt[k];
   for (int t = threadIdx.x; t < ntile; t += kThreads) {
     const int row = g * nsub + (t0 + t * kTile) / C;
@@ -297,11 +246,10 @@ p2p_kernel(const T* __restrict__ pos, const int32_t* __restrict__ row_ptr,
   }
   __syncthreads();
   // a float tile whose 32 targets all are pads gets no entries: its sums
-  // stay 0, which is exactly what its pairs would add in dim 3 (in dim 2
-  // they would add ~5e-19 a real source; every caller drops pad targets)
+  // stay 0, which is exactly what its pairs would add
   if constexpr (Tiling<T>::kSkipPads) {
     for (int t = warp; t < ntile; t += kWarps)
-      if (!__any_sync(~0u, !(tgt_s[(t * kTile + lane) * DIM] >= kPadX)) &&
+      if (!__any_sync(~0u, !(tgt_s[(t * kTile + lane) * 3] >= kPadX)) &&
           lane == 0)
         s_pre[t + 1] = 0;
     __syncthreads();
@@ -316,8 +264,8 @@ p2p_kernel(const T* __restrict__ pos, const int32_t* __restrict__ row_ptr,
   // warp w takes items w, w + kWarps, ...
   const int W = s_pre[ntile];
   T* wring = ring + warp * RING;
-  T* wcomb = comb + warp * kSlots * DIM;
-  for (int k = lane; k < kSlots * DIM; k += 32) wcomb[k] = T(0);
+  T* wcomb = comb + warp * kSlots * 3;
+  for (int k = lane; k < kSlots * 3; k += 32) wcomb[k] = T(0);
   __syncwarp();
 
   constexpr int kStride = kWarps;        // warp w takes items w, w + 8, ..
@@ -391,22 +339,21 @@ p2p_kernel(const T* __restrict__ pos, const int32_t* __restrict__ row_ptr,
   };
 
   // copy the selected lane groups of a unit's chunk into ring slot `slot`
-  // in 16-byte pieces (a lane group is C * DIM values, a multiple of 16
+  // in 16-byte pieces (a lane group is C * 3 values, a multiple of 16
   // bytes); a piece's group is found with a float reciprocal, exact here
-  const int pieces = C * DIM * int(sizeof(T)) / 16;
+  const int pieces = C * 3 * int(sizeof(T)) / 16;
   const float inv_pieces = 1.0f / float(pieces);
-  // a full unit is U0 * DIM values: 32 * DIM pieces, DIM a lane
-  constexpr int kPieces = U0 * DIM * int(sizeof(T)) / (16 * 32);
+  // a full unit is U0 * 3 values = 96 pieces, 3 a lane
+  constexpr int kPieces = U0 * 3 * int(sizeof(T)) / (16 * 32);
   const unsigned ring_s = static_cast<unsigned>(
       __cvta_generic_to_shared(wring)) + 16 * lane;
   auto issue = [&](const Unit& u, int slot) {
     const int c0 = kWhole ? 0 : u.chunk * U;
-    const int n16 =
-        (kWhole ? CB : min(U, CB - c0)) * DIM * int(sizeof(T)) / 16;
-    const int off16 = (c0 - u.q0 * C) * DIM * int(sizeof(T)) / 16;
+    const int n16 = (kWhole ? CB : min(U, CB - c0)) * 3 * int(sizeof(T)) / 16;
+    const int off16 = (c0 - u.q0 * C) * 3 * int(sizeof(T)) / 16;
     const char* src = reinterpret_cast<const char*>(
-        pos + (int64_t(u.blk) * CB + c0) * DIM) + 16 * lane;
-    const unsigned dst = ring_s + slot * U0 * DIM * int(sizeof(T));
+        pos + (int64_t(u.blk) * CB + c0) * 3) + 16 * lane;
+    const unsigned dst = ring_s + slot * U0 * 3 * int(sizeof(T));
 #pragma unroll
     for (int i = 0; i < kPieces; ++i) {
       const int k = lane + 32 * i;
@@ -448,15 +395,15 @@ p2p_kernel(const T* __restrict__ pos, const int32_t* __restrict__ row_ptr,
     const Unit& cur = un[0];
     if (cur.tile != loaded) {
       loaded = cur.tile;
-      const T* tp = tgt_s + (cur.tile * kTile + li * TT) * DIM;
+      const T* tp = tgt_s + (cur.tile * kTile + li * TT) * 3;
 #pragma unroll
       for (int k = 0; k < TT; ++k) {
-        tx[k] = tp[DIM * k];
-        ty[k] = tp[DIM * k + 1];
-        if constexpr (DIM == 3) tz[k] = tp[DIM * k + 2];
+        tx[k] = tp[3 * k];
+        ty[k] = tp[3 * k + 1];
+        tz[k] = tp[3 * k + 2];
       }
     }
-    const T* sb = wring + slot * U0 * DIM;
+    const T* sb = wring + slot * U0 * 3;
     const int c0 = kWhole ? 0 : cur.chunk * U;
     const int cend = kWhole ? CB : c0 + min(U, CB - c0);
     for (int q = cur.q0; q <= cur.q1; ++q) {
@@ -464,35 +411,24 @@ p2p_kernel(const T* __restrict__ pos, const int32_t* __restrict__ row_ptr,
       const int j1 = min((q + 1) * C, cend) - c0;
       for (int j = max(q * C, c0) - c0 + 4 * h; j < j1; j += 4 * H) {
         T sx[4], sy[4], sz[4];
-        if constexpr (DIM == 3)
-          load4(sb + 3 * j, sx, sy, sz);
-        else
-          load4(sb + 2 * j, sx, sy);
+        load4(sb + 3 * j, sx, sy, sz);
         if constexpr (Tiling<T>::kSkipPads) {
           if (fminf(fminf(sx[0], sx[1]), fminf(sx[2], sx[3])) >= kPadX)
-            continue;                    // four pads: weight 0 (3D), d * w
-        }                                // ~5e-19 (2D)
+            continue;                    // four pads: weight exactly 0
+        }
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
 #pragma unroll
           for (int k = 0; k < TT; ++k) {
             const T dx = tx[k] - sx[s];
             const T dy = ty[k] - sy[s];
-            if constexpr (DIM == 3) {
-              const T dz = tz[k] - sz[s];
-              const T d2 = fma(dz, dz, fma(dy, dy, fma(dx, dx, eps2)));
-              const T r = rsqrt_t(d2);
-              const T w = r * r * r;
-              px[k] = fma(dx, w, px[k]);
-              py[k] = fma(dy, w, py[k]);
-              pz[k] = fma(dz, w, pz[k]);
-            } else {
-              const T d2 = fma(dy, dy, fma(dx, dx, eps2));
-              const T r = rsqrt_t(d2);
-              const T w = r * r;
-              px[k] = fma(dx, w, px[k]);
-              py[k] = fma(dy, w, py[k]);
-            }
+            const T dz = tz[k] - sz[s];
+            const T d2 = fma(dz, dz, fma(dy, dy, fma(dx, dx, eps2)));
+            const T r = rsqrt_t(d2);
+            const T w = r * r * r;
+            px[k] = fma(dx, w, px[k]);
+            py[k] = fma(dy, w, py[k]);
+            pz[k] = fma(dz, w, pz[k]);
           }
         }
       }
@@ -513,16 +449,16 @@ p2p_kernel(const T* __restrict__ pos, const int32_t* __restrict__ row_ptr,
         for (int o = LT; o < 32; o <<= 1) {
           ax[k] += __shfl_xor_sync(~0u, ax[k], o);
           ay[k] += __shfl_xor_sync(~0u, ay[k], o);
-          if constexpr (DIM == 3) az[k] += __shfl_xor_sync(~0u, az[k], o);
+          az[k] += __shfl_xor_sync(~0u, az[k], o);
         }
       }
       if (h == 0) {
-        T* cp = wcomb + (cur.tile * kTile + li * TT) * DIM;
+        T* cp = wcomb + (cur.tile * kTile + li * TT) * 3;
 #pragma unroll
         for (int k = 0; k < TT; ++k) {
-          cp[DIM * k] = ax[k];
-          cp[DIM * k + 1] = ay[k];
-          if constexpr (DIM == 3) cp[DIM * k + 2] = az[k];
+          cp[3 * k] = ax[k];
+          cp[3 * k + 1] = ay[k];
+          cp[3 * k + 2] = az[k];
         }
       }
 #pragma unroll
@@ -538,16 +474,16 @@ p2p_kernel(const T* __restrict__ pos, const int32_t* __restrict__ row_ptr,
   __syncthreads();
 
   // each target: the warps' shares in warp order, written once
-  T* op = out + (int64_t(g) * CB + t0) * DIM;
-  for (int k = threadIdx.x; k < ntile * kTile * DIM; k += kThreads) {
+  T* op = out + (int64_t(g) * CB + t0) * 3;
+  for (int k = threadIdx.x; k < ntile * kTile * 3; k += kThreads) {
     T s = comb[k];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) s += comb[w * kSlots * DIM + k];
+    for (int w = 1; w < kWarps; ++w) s += comb[w * kSlots * 3 + k];
     op[k] = s;
   }
 }
 
-template <typename T, int DIM>
+template <typename T>
 int launch(const T* pos, const int32_t* row_ptr, const int32_t* col2d,
            const int32_t* order, T* out, int Gb, int CB, int nsub, int dmax,
            T eps2, void* stream) {
@@ -560,10 +496,10 @@ int launch(const T* pos, const int32_t* row_ptr, const int32_t* col2d,
   const int64_t blocks = int64_t(Gb) * ((CB + S - 1) / S);
   if (blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
   const int smem =
-      (kWarps * (Tiling<T>::kStages * Tiling<T>::kU + kSlots) + kSlots) *
-      DIM * int(sizeof(T));
-  const auto kernel = CB <= Tiling<T>::kU ? p2p_kernel<T, DIM, true>
-                                          : p2p_kernel<T, DIM, false>;
+      (kWarps * (Tiling<T>::kStages * Tiling<T>::kU + kSlots) + kSlots) * 3 *
+      int(sizeof(T));
+  const auto kernel = CB <= Tiling<T>::kU ? p2p_kernel<T, true>
+                                          : p2p_kernel<T, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
@@ -576,41 +512,22 @@ int launch(const T* pos, const int32_t* row_ptr, const int32_t* col2d,
 
 }  // namespace
 
-// Launch the float / double instantiation in dim 3 (co_p2p_launch,
-// co_p2p_launch_f64) or dim 2 (co_p2p_launch_2d, co_p2p_launch_2d_f64) on
-// `stream`; each returns the cudaError_t of the launch (0 on success).
-// `order` may be null.  The caller checks shapes; this re-checks what
-// would make the launch itself wrong.
+// Launch the float / double instantiation on `stream`; each returns the
+// cudaError_t of the launch (0 on success).  `order` may be null.  The
+// caller checks shapes; this re-checks what would make the launch itself
+// wrong.
 extern "C" int co_p2p_launch(const float* pos, const int32_t* row_ptr,
                              const int32_t* col2d, const int32_t* order,
                              float* out, int Gb, int CB, int nsub, int dmax,
                              float eps2, void* stream) {
-  return launch<float, 3>(pos, row_ptr, col2d, order, out, Gb, CB, nsub,
-                          dmax, eps2, stream);
+  return launch<float>(pos, row_ptr, col2d, order, out, Gb, CB, nsub, dmax,
+                       eps2, stream);
 }
 
 extern "C" int co_p2p_launch_f64(const double* pos, const int32_t* row_ptr,
                                  const int32_t* col2d, const int32_t* order,
                                  double* out, int Gb, int CB, int nsub,
                                  int dmax, double eps2, void* stream) {
-  return launch<double, 3>(pos, row_ptr, col2d, order, out, Gb, CB, nsub,
-                           dmax, eps2, stream);
-}
-
-extern "C" int co_p2p_launch_2d(const float* pos, const int32_t* row_ptr,
-                                const int32_t* col2d, const int32_t* order,
-                                float* out, int Gb, int CB, int nsub,
-                                int dmax, float eps2, void* stream) {
-  return launch<float, 2>(pos, row_ptr, col2d, order, out, Gb, CB, nsub,
-                          dmax, eps2, stream);
-}
-
-extern "C" int co_p2p_launch_2d_f64(const double* pos,
-                                    const int32_t* row_ptr,
-                                    const int32_t* col2d,
-                                    const int32_t* order, double* out,
-                                    int Gb, int CB, int nsub, int dmax,
-                                    double eps2, void* stream) {
-  return launch<double, 2>(pos, row_ptr, col2d, order, out, Gb, CB, nsub,
-                           dmax, eps2, stream);
+  return launch<double>(pos, row_ptr, col2d, order, out, Gb, CB, nsub, dmax,
+                        eps2, stream);
 }

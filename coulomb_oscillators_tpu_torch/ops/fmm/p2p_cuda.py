@@ -1,12 +1,14 @@
-"""Near-field (P2P) pass: the Hopper kernel's wrapper, its plain PyTorch
-version, and its launch counters.
+"""Near-field (P2P) pass: the Hopper kernels' wrapper, their plain PyTorch
+version, and their launch counters.
 
 Counterpart of ``coulomb_oscillators_tpu/ops/fmm/p2p_pallas.py``: both of
 its kernels (``p2p_leaf_pairs`` and ``p2p_leaf_pairs_streaming``), in both
-of their dims (weight r^3 in dim 3, r^2 in dim 2), become one CUDA kernel,
-``csrc/p2p.cu``, with four instantiations (float32 and float64, dims 3 and
-2), built with ``nvcc`` for ``sm_90a`` at first use and bound through
-ctypes.
+of their dims (weight r^3 in dim 3, r^2 in dim 2), become two CUDA
+kernels built with ``nvcc`` for ``sm_90a`` at first use and bound through
+ctypes: ``csrc/p2p.cu`` in dim 3 (float32 and float64; a CUDA block per
+target block, for long partner rows) and ``csrc/p2p2d.cu`` in dim 2
+(float32 and float64; a warp per segment of a partner row, for fmm2_kd's
+short, skewed rows).
 
 Contract (both versions): ``pos`` [Gb, CB, dim] float32 or float64 padded
 slots in block layout, dim 2 or 3 (nsub sub-leaves of C = CB/nsub slots
@@ -20,23 +22,27 @@ of d * (|d|^2 + eps2)^(-3/2) in dim 3, d * (|d|^2 + eps2)^-1 in dim 2, in
 the dtype of ``pos``.
 
 :func:`p2p` dispatches on the device of ``pos``: a CPU tensor goes to
-:func:`p2p_plain`; a CUDA tensor goes to the kernel's instantiation for
-its dim and dtype, or raises.  There is no fallback between them.  Before
-the launch the wrapper sorts the kernel's CUDA blocks by their partner
-entry count, heaviest first (:func:`block_order`, a few small device ops,
-no host sync), so the longest rows do not start last; the result does not
-depend on that order (:func:`launch` takes any order, or none).  On a CPU
-tensor the kd engine runs the plain sum as :func:`p2p_plain_entries` over
-its padded pair list: the same entries as the CSR's valid prefix, padded
-to the list's capacity, so the sum has no data-dependent shape and no
-host wait.
+:func:`p2p_plain`; a CUDA tensor goes to the kernel for its dim and
+dtype, or raises.  There is no fallback between them.  In dim 3 the
+wrapper first sorts the kernel's CUDA blocks by their partner entry count,
+heaviest first (:func:`block_order`, a few small device ops, no host
+sync), so the longest rows do not start last; the result does not depend
+on that order (:func:`launch` takes any order, or none).  In dim 2
+(:func:`launch_2d`) it makes the kernel's work plan instead
+(:func:`segment_plan`: a cumsum over the rows' segment counts, no sort and
+no host sync): each row is cut into segments of at most K =
+``SEG_ENTRIES`` partner entries that run on different warps, and the
+segments' partial sums are added in a fixed order.  On a CPU tensor the
+kd engine runs the plain sum as :func:`p2p_plain_entries` over its padded
+pair list: the same entries as the CSR's valid prefix, padded to the
+list's capacity, so the sum has no data-dependent shape and no host wait.
 
 Pads are not masked: a pad source at FAR adds d * w(FAR) to a real target,
 as in the reference's near-field sum.  In float32 dim 3 that weight
 underflows to exactly 0; in float64 dim 3 it is r^3 = 1e-54, so each pad
 adds about 1e-36; in dim 2 it is r^2 = 5e-37, so each pad adds about
 5e-19 in both dtypes.  The plain version adds every such term; the
-kernel's float32 instantiations skip all-pad source packets, all-pad
+kernels' float32 instantiations skip all-pad source packets, all-pad
 target tiles and the sentinel block, which in dim 2 drops terms of at most
 ~5e-19 each, far below the float32 resolution of a real target's sum.
 """
@@ -54,13 +60,15 @@ from coulomb_oscillators_tpu_torch.utils import graphs
 
 FAR = 1e18                 # pad-slot coordinate (the reference's FAR)
 PAD_X = 1e17               # x at or above it marks a pad slot (kPadX)
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "csrc", "p2p.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "csrc")
+SRC = os.path.join(_CSRC, "p2p.cu")
+SRC_2D = os.path.join(_CSRC, "p2p2d.cu")
 
-# kernel launches made through :func:`launch` (:func:`p2p` on a CUDA
-# tensor), in either dim, and those of the dim-2 instantiations alone;
-# counted nowhere else (a CUDA graph's replay adds what its captured step
-# launched, utils/graphs.py)
+# kernel launches made through :func:`launch` and :func:`launch_2d`
+# (:func:`p2p` on a CUDA tensor), in either dim, and those of the dim-2
+# kernel alone; counted nowhere else (a CUDA graph's replay adds what its
+# captured step launched, utils/graphs.py)
 launches = 0
 launches_2d = 0
 graphs.register_counter(sys.modules[__name__], "launches")
@@ -69,30 +77,48 @@ graphs.register_counter(sys.modules[__name__], "launches_2d")
 # pairs per chunk of the plain version (bounds its [k, C, CB] temporaries)
 _PLAIN_PAIRS = 1 << 25
 
-# target slots per CUDA block of the kernel (kSlots in csrc/p2p.cu), and
-# per warp tile (kTile)
+# target slots per CUDA block of the dim-3 kernel (kSlots in csrc/p2p.cu),
+# and per warp tile (kTile in both kernels)
 BLOCK_SLOTS = 128
 TILE_SLOTS = 32
 
+# K: the partner entries of one segment, the dim-2 kernel's unit of work
+# (1..32; csrc/p2p2d.cu)
+SEG_ENTRIES = 16
 
-# the C entry point of each (dim, dtype) instantiation
+
+# the C entry point of each instantiation: dim 3 in csrc/p2p.cu, dim 2 in
+# csrc/p2p2d.cu
 _ENTRY = {(3, torch.float32): "co_p2p_launch",
-          (3, torch.float64): "co_p2p_launch_f64",
-          (2, torch.float32): "co_p2p_launch_2d",
-          (2, torch.float64): "co_p2p_launch_2d_f64"}
+          (3, torch.float64): "co_p2p_launch_f64"}
+_ENTRY_2D = {torch.float32: "co_p2p2d_launch",
+             torch.float64: "co_p2p2d_launch_f64"}
+
+
+def _eps_type(dtype):
+    return ctypes.c_float if dtype == torch.float32 else ctypes.c_double
 
 
 def _bind(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for (_, dtype), name in _ENTRY.items():
         fn = getattr(lib, name)
-        eps = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, eps, vp]
+        fn.argtypes = [vp] * 5 + [ci] * 4 + [_eps_type(dtype), vp]
         fn.restype = ci
 
 
-# csrc/p2p.cu, built at first use
+def bind_2d(lib) -> None:
+    """Declare the dim-2 entry points of a loaded build of p2p2d.cu."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for dtype, name in _ENTRY_2D.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * 6 + [ci] * 5 + [_eps_type(dtype), vp]
+        fn.restype = ci
+
+
+# csrc/p2p.cu and csrc/p2p2d.cu, each built at first use
 library = native.CudaLibrary(SRC, "co_p2p", _bind)
+library_2d = native.CudaLibrary(SRC_2D, "co_p2p2d", bind_2d)
 
 
 def _check(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
@@ -134,6 +160,33 @@ def block_order(row_ptr: torch.Tensor, Gb: int, CB: int, nsub: int,
                          stable=True).to(torch.int32)
 
 
+def segment_plan(row_ptr: torch.Tensor, dmax: int, ntile: int = 1,
+                 K: int = SEG_ENTRIES) -> torch.Tensor:
+    """The dim-2 kernel's work plan, on the device of `row_ptr`, as the
+    int32 buffer it takes (``work`` in csrc/p2p2d.cu): [R + 2 + R*ntile]
+    for R = len(row_ptr) - 1 sub-leaf rows of `ntile` 32-target tiles.
+
+    A row of degree d (clamped to `dmax`) is cut into n = max(1,
+    ceil(d / K)) segments of at most K entries: segment s holds entries
+    [sK, min(sK + K, d)).  An item is one segment of one tile.
+    ``work[:R + 1]`` is the prefix (from 0) of each row's extra segments
+    (n - 1) times `ntile`: the kernel's items [0, work[R]) are those, row
+    by row, each row's from its last segment down to segment 1; items
+    [work[R], work[R] + R*ntile) are segment 0 of each (row, tile) in
+    order.  The rest (the kernel's item counter and its per-(row, tile)
+    counts of committed segments) is zero.  Its shape depends on the
+    shapes alone; no host sync, no sort."""
+    R = row_ptr.shape[0] - 1
+    extra = torch.diff(row_ptr).clamp_(1, dmax).sub_(1).div_(
+        K, rounding_mode="floor")
+    if ntile > 1:
+        extra.mul_(ntile)
+    work = torch.zeros(R + 2 + R * ntile, dtype=torch.int32,
+                       device=row_ptr.device)
+    torch.cumsum(extra, 0, out=work[1:R + 1])
+    return work
+
+
 def p2p(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
         nsub: int, eps2: float) -> torch.Tensor:
     """Near-field acceleration [Gb, CB, dim] (see the module contract)."""
@@ -142,19 +195,16 @@ def p2p(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
         return p2p_plain(pos, row_ptr, col2d, nsub, eps2)
     if pos.device.type != "cuda":
         raise ValueError(f"no P2P path for device {pos.device}")
-    Gb, CB, _ = pos.shape
+    Gb, CB, dim = pos.shape
+    if dim == 2:
+        return launch_2d(pos, row_ptr, col2d, nsub, eps2)
     return launch(pos, row_ptr, col2d, nsub, eps2,
                   block_order(row_ptr, Gb, CB, nsub, col2d.shape[1]))
 
 
-def launch(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
-           nsub: int, eps2: float, order: torch.Tensor | None):
-    """The kernel on CUDA tensors that :func:`_check` accepted, its CUDA
-    blocks in `order` (:func:`block_order`) or, with None, in grid order:
-    the same result either way.  Counts the launch (and, in dim 2, in
-    ``launches_2d`` too)."""
-    global launches, launches_2d
-    Gb, CB, dim = pos.shape
+def _check_cuda(pos, row_ptr, col2d, nsub):
+    """What both kernels take beyond :func:`_check`."""
+    CB = pos.shape[1]
     C = CB // nsub
     if C % 32 or nsub > 8:
         raise ValueError(f"the CUDA kernel takes C % 32 == 0 and nsub <= 8; "
@@ -162,6 +212,56 @@ def launch(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
     if not (pos.is_contiguous() and row_ptr.is_contiguous()
             and col2d.is_contiguous()):
         raise ValueError("pos, row_ptr and col2d must be contiguous")
+
+
+def launch_2d(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
+              nsub: int, eps2: float, K: int = SEG_ENTRIES) -> torch.Tensor:
+    """The dim-2 kernel (csrc/p2p2d.cu) on CUDA tensors that :func:`_check`
+    accepted, with segments of at most `K` entries: its plan
+    (:func:`segment_plan`), the scratch of its segments' running sums and
+    the output are allocated here.  Counts the launch in ``launches`` and
+    ``launches_2d``."""
+    global launches, launches_2d
+    Gb, CB, dim = pos.shape
+    if dim != 2:
+        raise ValueError(f"launch_2d takes [Gb, CB, 2], got "
+                         f"{tuple(pos.shape)}")
+    _check_cuda(pos, row_ptr, col2d, nsub)
+    if not 1 <= K <= 32:
+        raise ValueError(f"K must be 1..32, got {K}")
+    if Gb * CB * 2 >= 1 << 31:
+        raise ValueError(f"pos has {Gb * CB * 2} values; the kernel takes "
+                         f"< 2^31")
+    fn = getattr(library_2d.get(), _ENTRY_2D[pos.dtype])
+    if pos.data_ptr() % 16:              # the kernel copies 16-byte pieces
+        pos = pos.clone()
+    dmax = col2d.shape[1]
+    work = segment_plan(row_ptr, dmax, CB // nsub // TILE_SLOTS, K)
+    run = torch.empty_like(pos)
+    out = torch.empty_like(pos)
+    rc = fn(pos.data_ptr(), row_ptr.data_ptr(), col2d.data_ptr(),
+            work.data_ptr(), run.data_ptr(), out.data_ptr(), Gb, CB, nsub,
+            dmax, K, float(eps2),
+            torch.cuda.current_stream(pos.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"P2P kernel launch failed: cudaError_t {rc}")
+    launches += 1
+    launches_2d += 1
+    return out
+
+
+def launch(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
+           nsub: int, eps2: float, order: torch.Tensor | None):
+    """The dim-3 kernel (csrc/p2p.cu) on CUDA tensors that :func:`_check`
+    accepted, its CUDA blocks in `order` (:func:`block_order`) or, with
+    None, in grid order: the same result either way.  Counts the
+    launch."""
+    global launches
+    Gb, CB, dim = pos.shape
+    if dim != 3:
+        raise ValueError(f"launch takes [Gb, CB, 3] (dim 2: launch_2d), got "
+                         f"{tuple(pos.shape)}")
+    _check_cuda(pos, row_ptr, col2d, nsub)
     blocks = Gb * -(-CB // min(CB, BLOCK_SLOTS))
     if order is not None and (order.dtype != torch.int32
                               or order.shape != (blocks,)
@@ -180,8 +280,6 @@ def launch(pos: torch.Tensor, row_ptr: torch.Tensor, col2d: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"P2P kernel launch failed: cudaError_t {rc}")
     launches += 1
-    if dim == 2:
-        launches_2d += 1
     return out
 
 

@@ -283,6 +283,7 @@ def spawn(fn: Callable, n_devices: int, *args, device=None,
     if devs[0].type == "cuda":
         from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
         p2p_cuda.library.get()
+        p2p_cuda.library_2d.get()
         D.library.get()
     with tempfile.TemporaryDirectory() as tmp:
         torch.multiprocessing.spawn(

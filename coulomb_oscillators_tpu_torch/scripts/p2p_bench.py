@@ -10,23 +10,29 @@ N = 100k in float32 (``fmm2_kd``) and float64 (``fmm2_kd_float64``), and
 the same beam at N = 1M in float32 (``fmm2_kd_1M``).  For each case: the
 work counted from the inputs (``p2p_cuda.pair_counts``), the bounds
 (``utils.roofline.bound``: in 2D the rsqrt rate bounds float32), the
-kernel's time with its heavy-first block order and in grid order, the
-plain version's time, and the kernel's deviation from the plain
-version.
+kernel's time through ``p2p_cuda.p2p`` (in 3D with its heavy-first block
+order, and also in grid order; in 2D with its work plan, the
+decomposition's small ops included), the plain version's time, and the
+kernel's deviation from the plain version.
 
     python -m coulomb_oscillators_tpu_torch.scripts.p2p_bench \\
-        [--baseline OTHER.cu] [--agree-n 10000000] [--out FILE]
+        [--baseline OTHER.cu] [--seg 8,32] [--agree-n 10000000] [--out FILE]
 
-``--baseline`` (repeatable) builds another ``p2p.cu`` (with or without
-the block-order argument in its C entry points, as its source declares)
-and times it on the same inputs in turns with this one (base, new, new,
-base), and holds the two against each other; the rows name it by its
-file name.  A baseline without dim-2 entry points sits out the 2D
-cases.  nvidia-smi's SM clock and power draw are sampled while a case
-is timed.  ``--agree-n`` also runs the default engine's case
-at that N (the kernel against the plain version, and timed).  Prints one
-JSON row per case and the card's name and power limit; runs on a CUDA
-card only.
+``--baseline`` (repeatable) builds another kernel source and times it on
+the same inputs in turns with this one (base, new, new, base), and holds
+the two against each other; the rows name it by its file name.  A
+``p2p.cu`` is bound as its source declares: with or without the block
+order argument in its C entry points, with or without the dim-2 entry
+points of the earlier design (``co_p2p_launch_2d``, then called with the
+heavy-first block order as its wrapper did); a ``p2p2d.cu`` (entry points
+``co_p2p2d_launch``) takes the 2D cases with this tree's work plan.  A
+baseline without entry points for a case's dim sits it out.  ``--seg``
+also times the dim-2 kernel with other segment lengths K (the default is
+``p2p_cuda.SEG_ENTRIES``), in the same turns.  nvidia-smi's SM clock and
+power draw are sampled while a case is timed.  ``--agree-n`` also runs
+the default engine's case at that N (the kernel against the plain
+version, and timed).  Prints one JSON row per case and the card's name
+and power limit; runs on a CUDA card only.
 """
 
 from __future__ import annotations
@@ -59,6 +65,37 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps):
+    """Device time of one call of `fn` by kernel name (ms): each kernel's
+    total in a profiled run of `reps` calls, over `reps`; without the
+    host's launch cost, which sets the CUDA-event time of a small call."""
+    from coulomb_oscillators_tpu_torch.scripts.direct_bench import (
+        _device_events, _self_us)
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: _self_us(e) / reps / 1e3 for e in _device_events(prof)}
+
+
+def graph_ms(fn, reps):
+    """CUDA-event ms of one replay of `fn` captured in a CUDA graph (as a
+    Simulator's step runs it): the device's time with no host launch
+    between its kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                              # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
 def _rel_dev(a, b):
     dim = b.shape[-1]
     d = torch.linalg.vector_norm((a - b).reshape(-1, dim), dim=1).max()
@@ -67,42 +104,58 @@ def _rel_dev(a, b):
 
 
 def _baseline(path):
-    """The launcher of another build of the kernel: its C entry points take
-    a block order if its source declares one, else none (the earlier
-    kernel's interface); it takes dim 2 if the source has the dim-2 entry
-    points (``dims`` on the returned launcher says which dims)."""
+    """The launcher of another build of the kernel, bound as its source
+    declares (see the module docstring); ``dims`` on the returned
+    launcher says which dims it takes."""
     from coulomb_oscillators_tpu_torch import native
     from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
     with open(path) as f:
         src = f.read()
     ordered = "const int32_t* order" in src
-    dims = (2, 3) if "co_p2p_launch_2d" in src else (3,)
+    entries = {}                  # (dim, dtype) -> C entry point name
+    if "co_p2p_launch(" in src:
+        entries.update(p2p_cuda._ENTRY)
+    if "co_p2p_launch_2d" in src:
+        entries.update({(2, torch.float32): "co_p2p_launch_2d",
+                        (2, torch.float64): "co_p2p_launch_2d_f64"})
+    planned = "co_p2p2d_launch" in src
     so, _ = native.build_library(path, "co_p2p_base",
                                  [native.nvcc()] + native.NVCC_FLAGS)
     lib = ctypes.CDLL(so)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for (dim, dtype), name in p2p_cuda._ENTRY.items():
-        if dim not in dims:
-            continue
+    for (dim, dtype), name in entries.items():
         fn = getattr(lib, name)
         eps = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
         fn.argtypes = [vp] * (5 if ordered else 4) + [ci] * 4 + [eps, vp]
         fn.restype = ci
+    if planned:
+        p2p_cuda.bind_2d(lib)
 
     def run(pblk, rp, col, nsub, eps2):
         Gb, CB, dim = pblk.shape
         out = torch.empty_like(pblk)
-        fn = getattr(lib, p2p_cuda._ENTRY[dim, pblk.dtype])
-        order = ([p2p_cuda.block_order(rp, Gb, CB, nsub,
-                                       col.shape[1]).data_ptr()]
-                 if ordered else [])
-        rc = fn(pblk.data_ptr(), rp.data_ptr(), col.data_ptr(), *order,
+        stream = torch.cuda.current_stream().cuda_stream
+        if dim == 2 and planned:
+            K = p2p_cuda.SEG_ENTRIES
+            work = p2p_cuda.segment_plan(rp, col.shape[1],
+                                         CB // nsub // 32, K)
+            rc = getattr(lib, p2p_cuda._ENTRY_2D[pblk.dtype])(
+                pblk.data_ptr(), rp.data_ptr(), col.data_ptr(),
+                work.data_ptr(), torch.empty_like(pblk).data_ptr(),
+                out.data_ptr(), Gb, CB, nsub, col.shape[1], K, float(eps2),
+                stream)
+        else:
+            order = ([p2p_cuda.block_order(rp, Gb, CB, nsub,
+                                           col.shape[1]).data_ptr()]
+                     if ordered else [])
+            rc = getattr(lib, entries[dim, pblk.dtype])(
+                pblk.data_ptr(), rp.data_ptr(), col.data_ptr(), *order,
                 out.data_ptr(), Gb, CB, nsub, col.shape[1], float(eps2),
-                torch.cuda.current_stream().cuda_stream)
+                stream)
         if rc:
             raise RuntimeError(f"{path}: launch failed: cudaError_t {rc}")
         return out
-    run.dims = dims
+    run.dims = {d for d, _ in entries} | ({2} if planned else set())
     return run
 
 
@@ -180,9 +233,10 @@ def _engine(name, n):
     return cfg, KdFmmEngine(cfg, n, **sub), pos
 
 
-def case(name, n, dev, bases=(), reps=10):
+def case(name, n, dev, bases=(), reps=10, segs=()):
     """One case's row (see the module docstring); `bases` are (name,
-    launcher) pairs of other builds."""
+    launcher) pairs of other builds, `segs` other segment lengths K of
+    the dim-2 kernel."""
     from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
     from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR
     from coulomb_oscillators_tpu_torch.utils import roofline
@@ -201,31 +255,54 @@ def case(name, n, dev, bases=(), reps=10):
                CB=eng.C_blk, nsub=eng.nsub, dmax=fs.p2p_col2d.shape[1],
                **counts, **b)
     got = p2p_cuda.p2p(*args)
+    row["bitwise_repeat"] = bool(torch.equal(got, p2p_cuda.p2p(*args)))
     row["rel_dev_plain"] = _rel_dev(got, p2p_cuda.p2p_plain(*args))
     row["plain_ms"] = cuda_ms(lambda: p2p_cuda.p2p_plain(*args),
                               max(1, reps // 10))
-    kern = [lambda: p2p_cuda.p2p(*args),
-            lambda: p2p_cuda.launch(*args, order=None)]
-    bases = [(bname, run) for bname, run in bases if cfg.dim in run.dims]
+    # the timed calls by the row's key: p2p() first, then in 3D the grid
+    # order, in 2D the other segment lengths, then the bases
+    kern = {"ms": lambda: p2p_cuda.p2p(*args)}
+    if cfg.dim == 3:
+        kern["ms_grid_order"] = lambda: p2p_cuda.launch(*args, order=None)
+    else:
+        deg = np.minimum(np.diff(fs.p2p_row_ptr.cpu().numpy()), row["dmax"])
+        R, ntile = deg.shape[0], eng.C_blk // eng.nsub // 32
+        work = p2p_cuda.segment_plan(fs.p2p_row_ptr, row["dmax"], ntile)
+        row.update(seg_entries=p2p_cuda.SEG_ENTRIES,
+                   segments=int(work[R]) + R * ntile,
+                   row_entries=dict(median=float(np.median(deg)),
+                                    p99=float(np.percentile(deg, 99)),
+                                    max=int(deg.max())))
+        for K in segs:
+            kern[f"ms_K{K}"] = lambda K=K: p2p_cuda.launch_2d(*args, K=K)
+            row[f"rel_dev_plain_K{K}"] = _rel_dev(kern[f"ms_K{K}"](),
+                                                  p2p_cuda.p2p_plain(*args))
     for bname, run in bases:
-        row[f"rel_dev_{bname}"] = _rel_dev(run(*args), got)
-        kern.append(lambda run=run: run(*args))
-    # in turns: bases, kernel, grid order, grid order, kernel, bases
-    others = list(range(2, len(kern)))
-    seq = others + [0, 1, 1, 0] + others[::-1]
-    times = [[] for _ in kern]
+        if cfg.dim in run.dims:
+            row[f"rel_dev_{bname}"] = _rel_dev(run(*args), got)
+            row[f"bitwise_{bname}"] = bool(torch.equal(run(*args), got))
+            kern[f"{bname}_ms"] = lambda run=run: run(*args)
+    # in turns: bases, variants, p2p(), p2p(), variants, bases
+    keys = list(kern)
+    seq = keys[:0:-1] + [keys[0], keys[0]] + keys[1:]
+    times = {k: [] for k in keys}
     with Clocks() as clocks:
         for k in seq:
             times[k].append(cuda_ms(kern[k], reps))
     row.update(clocks.summary())
-    row["ms"] = float(np.mean(times[0]))
-    row["ms_grid_order"] = float(np.mean(times[1]))
-    row["ms_runs"] = times[0] + times[1]
-    for (bname, _), t in zip(bases, times[2:]):
-        row[f"{bname}_ms"] = float(np.mean(t))
-        row[f"{bname}_ms_runs"] = t
+    for k in keys:
+        row[k] = float(np.mean(times[k]))
+        row[f"{k}_runs"] = times[k]
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["real_pairs_per_s"] = counts["real_pairs"] / row["ms"] * 1e3
+    # the device's share: p2p() and each base by kernel, and in a graph
+    for k in keys:
+        by = device_ms(kern[k], reps)
+        row[f"device_{k}"] = sum(by.values())
+        if k == "ms" or k.endswith("_ms"):
+            row[f"device_{k}_by_kernel"] = by
+            row[f"graph_{k}"] = graph_ms(kern[k], reps)
+    row["graph_bound_share"] = row["bound_ms"] / row["graph_ms"]
     return row
 
 
@@ -233,6 +310,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", action="append", default=[])
     ap.add_argument("--agree-n", type=int, default=0)
+    ap.add_argument("--seg", default="",
+                    help="other segment lengths K of the dim-2 kernel")
     ap.add_argument("--cases", default="default,sub_depth=0,"
                     "dens_inhom=0.25,tree_L=10,float64,fmm2_kd,"
                     "fmm2_kd_float64,fmm2_kd_1M")
@@ -250,7 +329,8 @@ def main(argv=None) -> int:
     rows = []
     for name in a.cases.split(","):
         row = case(name, CASE_N.get(name, 1_000_000), dev, bases,
-                   reps=3 if name == "float64" else 10)
+                   reps=3 if name == "float64" else 10,
+                   segs=[int(k) for k in a.seg.split(",") if k])
         row["card"] = smi
         print(json.dumps(row), flush=True)
         rows.append(row)

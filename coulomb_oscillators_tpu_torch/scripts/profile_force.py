@@ -20,7 +20,7 @@ uniform box) the stages are those of ``ops/fmm/octree.py`` and
 Usage:
   python -m coulomb_oscillators_tpu_torch.scripts.profile_force
       [mode] [N] [p] [r] [--engine fmm3_kd] [--out FILE] [--logdir DIR]
-      [--device cpu]
+      [--device cpu] [--precision float64]
   mode: nothing (print the rows), `artifact` (also write the JSON record
   to --out), `all` (the rows of fmm3_kd at N, fmm2_kd at N=100k and fmm3,
   fmm3_traceless, appel at N on the uniform box), `trace` (3 padded force
@@ -30,7 +30,7 @@ Usage:
   fmm3_kd or fmm2_kd, under the profiler:
   device ms/step against wall ms/step, with the steps as CUDA graphs and
   then eagerly (the record's ``eager``); cadence via env CO_TS / CO_RESORT
-  / CO_PIPE, default 16/2/2).
+  / CO_PIPE, default 16/2/2; --precision float64 runs it in double).
 """
 
 from __future__ import annotations
@@ -252,7 +252,7 @@ def trace_force(n: int, p: int, r: float, device, logdir: str,
 
 def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
                resort: int = 2, pipeline: int = 2, graphs=None,
-               engine: str = "fmm3_kd") -> dict:
+               engine: str = "fmm3_kd", precision: str = "float32") -> dict:
     """One production reuse window of the kd `engine`'s Simulator
     (``fmm3_kd`` on the production beam, or ``fmm2_kd`` on its first two
     axes with ladder row 2's omega0) under the profiler:
@@ -261,7 +261,8 @@ def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
     step.  `graphs` True or False runs the steps as CUDA graphs or eagerly
     (None: as ``CO_CUDA_GRAPHS`` says); the record says which, with the
     captures, their seconds and the peak of allocated device memory over
-    the two windows."""
+    the two windows.  `precision` "float64" runs the state and the
+    engine in double."""
     from coulomb_oscillators_tpu_torch.scripts.stale_margin_probe import (
         cadence_config)
     from coulomb_oscillators_tpu_torch.simulate import Simulator
@@ -276,6 +277,9 @@ def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
     else:
         cfg = cadence_config(p, r, ts, resort, pipeline)
         pos_h, vel_h = C.beam(n, cfg)
+    if precision == "float64":
+        cfg = cfg.replace(precision="float64")
+        pos_h, vel_h = pos_h.astype(np.float64), vel_h.astype(np.float64)
     with C.graphs_env(graphs):
         sim = Simulator(cfg, n, engine=engine)
     cuda = torch.device(device).type == "cuda"
@@ -310,7 +314,8 @@ def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
     tot = sum(hist.values())
     top = dict(list(hist.items())[:40])
     return {"metric": "production_window_trace",
-            "config": {"engine": engine, "n": n, "p": p, "r": r, "ts": ts,
+            "config": {"engine": engine, "precision": precision,
+                       "n": n, "p": p, "r": r, "ts": ts,
                        "resort_every": resort, "pipeline": pipeline,
                        "stale_margin": margin},
             "device": C.device_info(device), "window_wall_s": wall,
@@ -343,6 +348,9 @@ def main(argv=None) -> int:
                     help="trace directory (a temporary one otherwise)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--precision", default="float32",
+                    choices=("float32", "float64"),
+                    help="prodtrace: the state's and engine's dtype")
     a = ap.parse_args(argv)
     pos_args = list(a.args)
     mode = ""
@@ -370,7 +378,7 @@ def main(argv=None) -> int:
                    int(os.environ.get("CO_PIPE", "2")))
             recs = [prod_trace(n, p, r, device,
                                os.path.join(logdir, tag), *cad, graphs=g,
-                               engine=a.engine)
+                               engine=a.engine, precision=a.precision)
                     for tag, g in (("graph", True), ("eager", False))]
             out = dict(recs[0], eager=recs[1])
             for rec in recs:

@@ -1,5 +1,6 @@
-"""The Hopper P2P kernel against its plain PyTorch version, on the card,
-in dims 3 and 2 (fmm3_kd and fmm2_kd), float32 and float64.
+"""The Hopper P2P kernels against their plain PyTorch version, on the
+card: csrc/p2p.cu in dim 3 (fmm3_kd) and csrc/p2p2d.cu in dim 2
+(fmm2_kd), float32 and float64.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports no JAX (the GPU machine has none), so it runs there on its own,
@@ -145,8 +146,8 @@ def test_kernel_matches_plain_synthetic(cuda, nsub, CB, dtype, dim):
     above dmax, the sentinel, mask-0 entries, every lane-group mask and a
     row of 1,600 entries), in dims 3 and 2: max|da| / max|a| <= 1e-5 in
     float32 and 1e-12 in float64 against the plain version; one launch per
-    call (counted in launches_2d too in dim 2); the same bits again and
-    in grid order (no block order)."""
+    call (counted in launches_2d too in dim 2); the same bits again, and
+    in dim 3 in grid order (no block order)."""
     pos, rp, col = synthetic(nsub, CB, Gb=24, dtype=dtype, seed=nsub + CB,
                              long_row=1600, dim=dim)
     args = (torch.from_numpy(pos).to(cuda), torch.from_numpy(rp).to(cuda),
@@ -157,12 +158,83 @@ def test_kernel_matches_plain_synthetic(cuda, nsub, CB, dtype, dim):
         before[0] + 1, before[1] + (dim == 2))
     ref = p2p_cuda.p2p_plain(*args)
     again = p2p_cuda.p2p(*args)
-    grid_order = p2p_cuda.launch(*args, order=None)
     torch.cuda.synchronize()
     assert got.dtype == args[0].dtype and bool(torch.isfinite(got).all())
     tol = 1e-5 if dtype == np.float32 else 1e-12
     assert rel_dev(got.cpu().numpy(), ref.cpu().double().numpy()) <= tol
-    assert torch.equal(got, again) and torch.equal(got, grid_order)
+    assert torch.equal(got, again)
+    if dim == 3:
+        assert torch.equal(got, p2p_cuda.launch(*args, order=None))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("K", [1, 16, 32])
+@pytest.mark.parametrize("nsub,CB", [(4, 128), (1, 256), (8, 1024)])
+def test_kernel2d_segments(cuda, nsub, CB, K, dtype):
+    """The dim-2 kernel with segments of K entries on synthetic lists with
+    rows of 1, K, K + 1 and 1,600 entries (the last one spans 50-1,600
+    segments): max|da| / max|a| <= 1e-5 in float32 and 1e-12 in float64
+    against the plain version, bitwise the same in a second launch, one
+    launch a call."""
+    pos, rp, col = synthetic(nsub, CB, Gb=24, dtype=dtype, seed=K + CB,
+                             long_row=1600, dim=2, degrees=(1, K, K + 1))
+    args = (torch.from_numpy(pos).to(cuda), torch.from_numpy(rp).to(cuda),
+            torch.from_numpy(col).to(cuda), nsub, 1e-18)
+    before = p2p_cuda.launches_2d
+    got = p2p_cuda.launch_2d(*args, K=K)
+    again = p2p_cuda.launch_2d(*args, K=K)
+    assert p2p_cuda.launches_2d == before + 2
+    ref = p2p_cuda.p2p_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    assert rel_dev(got.cpu().numpy(), ref.cpu().double().numpy()) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [100_000, 1_000_000])
+def test_kernel2d_matches_plain_kd_states(cuda, n, dtype):
+    """The dim-2 kernel on fmm2_kd's states (ladder row 2's config and 2D
+    beam) at N = 100k and at N = 1M, whose heaviest row holds ~2,000
+    entries: max|da| / max|a| <= 1e-5 in float32 and 1e-12 in float64
+    against the plain version, bitwise the same in a second call."""
+    cfg = SimConfig(precision=dtype, **CFG2)
+    pos_h, _ = _beam2(n)
+    pos = torch.from_numpy(pos_h.astype(dtype)).to(cuda)
+    eng = KdFmmEngine(cfg, n)
+    fs = eng.build(pos)
+    pblk = eng.pad_array(pos, fs, fill=FAR).reshape(eng.G_blk, eng.C_blk, 2)
+    args = (pblk.contiguous(), fs.p2p_row_ptr, fs.p2p_col2d, eng.nsub,
+            cfg.eps2)
+    got = p2p_cuda.p2p(*args)
+    again = p2p_cuda.p2p(*args)
+    ref = p2p_cuda.p2p_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == pos.dtype and torch.equal(got, again)
+    dev = _dev(got, ref)
+    assert dev <= (1e-5 if dtype == "float32" else 1e-12), dev
+
+
+def test_kernel2d_graph_replay_equals_eager(cuda):
+    """p2p() in dim 2 captured in a CUDA graph (its plan, scratch and
+    launch) and replayed twice equals the eager call bitwise."""
+    pos, rp, col = synthetic(4, 128, Gb=64, seed=3, long_row=1600, dim=2)
+    args = (torch.from_numpy(pos).to(cuda), torch.from_numpy(rp).to(cuda),
+            torch.from_numpy(col).to(cuda), 4, 1e-18)
+    eager = p2p_cuda.p2p(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        p2p_cuda.p2p(*args)                  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = p2p_cuda.p2p(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 def test_kernel_rejects_unsupported_layout(cuda):

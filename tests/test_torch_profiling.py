@@ -238,8 +238,9 @@ def test_profile_force_grid_rows(engine, stages):
 
 def test_profile_force_fmm2_kd_traces(tmp_path):
     """trace and prodtrace of fmm2_kd on --device cpu: the records name
-    the engine, the window runs in 2D and, with no card, no kernel shows
-    in the device histograms."""
+    the engine (and prodtrace its precision, float32 or float64), the
+    window runs in 2D and, with no card, no kernel shows in the device
+    histograms."""
     assert PF.main(["trace", "1024", "3", "2.0", "--engine", "fmm2_kd",
                     "--device", "cpu", "--out",
                     str(tmp_path / "tr.json")]) == 0
@@ -251,6 +252,12 @@ def test_profile_force_fmm2_kd_traces(tmp_path):
                         graphs=False, engine="fmm2_kd")
     assert rec["config"]["engine"] == "fmm2_kd" and rec["config"]["ts"] == 4
     assert rec["wall_ms_per_step"] > 0 and rec["graphs"] is False
+    assert rec["config"]["precision"] == "float32"
+    rec = PF.prod_trace(1024, 3, 2.0, torch.device("cpu"),
+                        str(tmp_path / "pt64"), ts=4, resort=1, pipeline=1,
+                        graphs=False, engine="fmm2_kd", precision="float64")
+    assert rec["config"]["precision"] == "float64"
+    assert rec["wall_ms_per_step"] > 0
     with pytest.raises(SystemExit):
         PF.main(["trace", "1024", "--engine", "fmm3", "--device", "cpu"])
 

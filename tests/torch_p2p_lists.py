@@ -8,14 +8,14 @@ FAR = 1e18
 
 
 def synthetic(nsub, CB, Gb=6, dtype=np.float32, seed=0, deg_hi=6,
-              long_row=0, dim=3):
+              long_row=0, dim=3, degrees=()):
     """(pos [Gb, CB, dim], row_ptr [Gb*nsub+1] int32, col2d [Gb*nsub, dmax]
     int32) with FAR pads trailing each sub-leaf (one sub-leaf full, one all
     pads), a row of degree 0, a full row holding every lane-group mask 0
-    .. 2^nsub - 1 of block 0, a row of degree `long_row` (if set), a row
-    whose degree is above dmax (clamped), the sentinel block id Gb and
-    mask 0 among the random entries, and random values past each degree
-    (never read)."""
+    .. 2^nsub - 1 of block 0, a row of degree `long_row` (if set), rows 4,
+    5, ... of the given `degrees`, a row whose degree is above dmax
+    (clamped), the sentinel block id Gb and mask 0 among the random
+    entries, and random values past each degree (never read)."""
     rng = np.random.default_rng(seed)
     C = CB // nsub
     G = Gb * nsub
@@ -31,6 +31,7 @@ def synthetic(nsub, CB, Gb=6, dtype=np.float32, seed=0, deg_hi=6,
     deg[1] = len(masks)
     if long_row:
         deg[2] = long_row
+    deg[4:4 + len(degrees)] = degrees
     dmax = int(deg.max())
     deg[3] = dmax + 7
     row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
@@ -75,3 +76,46 @@ def rel_dev(got, ref):
                        axis=1)
     return float(d.max() / np.linalg.norm(ref.reshape(-1, dim),
                                           axis=1).max())
+
+
+def segment_items(work, row_ptr, dmax, ntile, K):
+    """The dim-2 kernel's items as it reads them from its work plan
+    (``p2p_cuda.segment_plan``; csrc/p2p2d.cu): a list, in item order, of
+    (row, tile, segment, segments of the row, first entry, end entry)."""
+    work = np.asarray(work, np.int64)
+    deg = np.clip(np.diff(np.asarray(row_ptr, np.int64)), 0, dmax)
+    R = deg.shape[0]
+    X = int(work[R])
+    items = []
+    for i in range(X + R * ntile):
+        if i < X:
+            row = int(np.searchsorted(work[:R + 1], i, side="right")) - 1
+            d, tile = divmod(i - int(work[row]), ntile)
+            n = (int(work[row + 1]) - int(work[row])) // ntile + 1
+            seg = n - 1 - d
+        else:
+            row, tile = divmod(i - X, ntile)
+            seg = 0
+            n = max(1, -(-int(deg[row]) // K))
+        e0 = seg * K
+        items.append((row, tile, seg, n, e0, min(e0 + K, int(deg[row]))))
+    return items
+
+
+def p2p_segments(pos, row_ptr, col2d, nsub, eps2, K):
+    """Plain emulation (torch) of the dim-2 kernel's summation order: each
+    row's segments of at most K partner entries summed apart
+    (``p2p_cuda.p2p_plain_entries``), then added highest segment first,
+    out = ((p_(n-1) + p_(n-2)) + ...) + p_0."""
+    import torch
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    deg = (row_ptr[1:] - row_ptr[:-1]).clamp(0, col2d.shape[1])
+    cols = torch.arange(col2d.shape[1])
+    out = torch.zeros_like(pos)
+    for s in reversed(range(max(1, -(-int(deg.max()) // K)))):
+        sel = (cols[None, :] < deg[:, None]) & (cols[None, :] >= s * K) & (
+            cols[None, :] < (s + 1) * K)
+        rows, ks = torch.nonzero(sel, as_tuple=True)
+        out = out + p2p_cuda.p2p_plain_entries(pos, rows, col2d[rows, ks],
+                                               nsub, eps2)
+    return out
