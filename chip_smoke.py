@@ -169,13 +169,29 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      (scripts.energy_drift.artifact: N=30001, p=6, r=2.5, dt=2e-5, its
      stiffening ladder) cut to 2000 steps: max drift <= 1e-6, P2P launches
      == the force evaluations of its rungs; the first rung's drift and
-     whether it stiffened printed.
+     whether it stiffened printed;
+ 19. stored fold: the stored-fold M2L (CO_M2L_FLY=0) against fly mode.
+     fmm3_kd at N=1M, p=6, r=1.67, boost 1.5, built once in each mode from
+     the same beam: the stored fold's shape [Km, S_H] (fly mode's
+     placeholders [1, 1]), two force evaluations in each mode, stored
+     against fly within max(2 x the larger eager-against-eager spread,
+     1e-6) of max|a| (index_add_ adds in no fixed order), the stored-mode
+     force against Kahan on 2,048 targets (<= 1e-3), P2P launches == the 4
+     force evaluations, and one line of both modes' CUDA-event ms of
+     _stage_m2l and geom_refresh, the fold's bytes and its adoption ms;
+     three 16/2/2 windows and a step with graphs in each mode (refresh on,
+     an adopted re-sort, folded on the rebuild thread in stored mode):
+     finite, a capture, P2P launches == 50 force evaluations, stored
+     against fly within 1e-5 of max|pos|; fmm2_kd at N=100k, p=4, r=2
+     with frozen geometry (CO_GEOM_REFRESH=0's config), 12 steps in each
+     mode: dim-2 P2P launches == 13, stored against fly within 1e-5.
 
 Any failure raises: the script then exits non-zero without its last line.
 Usage, from the repository root:  python3 chip_smoke.py
 """
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -1776,6 +1792,135 @@ def _phase_ladder_drift(dev, smi, torch):
     return launches
 
 
+@contextlib.contextmanager
+def _m2l_env(fly):
+    """Engines made inside read ``CO_M2L_FLY`` = `fly`."""
+    old = os.environ.get("CO_M2L_FLY")
+    os.environ["CO_M2L_FLY"] = fly
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["CO_M2L_FLY"]
+        else:
+            os.environ["CO_M2L_FLY"] = old
+
+
+def _phase_stored_fold(dev, smi, torch):
+    """Phase 19: the stored-fold M2L (CO_M2L_FLY=0) against fly mode.
+    Returns the P2P launches of its paths by dim."""
+    import numpy as np
+    from coulomb_oscillators_tpu_torch import SimConfig
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+    from coulomb_oscillators_tpu_torch.ops import direct as D
+    from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+    from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR, KdFmmEngine
+    from coulomb_oscillators_tpu_torch.ops.reductions import mean_rel_err
+    from coulomb_oscillators_tpu_torch.scripts.stale_margin_probe import (
+        cadence_config)
+
+    # (a) the bench's configuration: both modes' states, forces, stages
+    cfg = SimConfig(fmm_order=6, tree_radius=1.67)      # boost 1.5
+    u_std = tuple(w * x for w, x in zip(cfg.omega0, X_STD))
+    pos_h, vel_h = ID.init_gaussian(N, X_STD, u_std, seed=SEED)
+    pos = torch.from_numpy(pos_h).to(dev)
+    forces, rows = {}, {}
+    p2p_cuda.launches = 0
+    for mode, fly in (("fly", "1"), ("stored", "0")):
+        with _m2l_env(fly):
+            eng = KdFmmEngine(cfg, N)
+        _require(eng.m2l_fly is (mode == "fly"), f"CO_M2L_FLY={fly} read")
+        fs = eng.build(pos)
+        Km, S_H = fs.m2l_tgt.shape[0], eng.tables.S_H
+        want = (Km, S_H) if mode == "stored" else (1, 1)
+        _require(tuple(fs.m2l_h2.shape) == want,
+                 f"{mode} m2l_h2 {tuple(fs.m2l_h2.shape)} == {want}")
+        forces[mode] = [eng.force(pos, fs) for _ in range(2)]
+        ppad = eng.pad_array(pos, fs, fill=FAR)
+        mh = eng._stage_multipoles(ppad, fs)
+        rows[mode] = dict(
+            m2l_ms=_cuda_ms(lambda: eng._stage_m2l(mh, fs), 5, torch),
+            geom_refresh_ms=_cuda_ms(lambda: eng.geom_refresh(ppad, fs), 5,
+                                     torch),
+            m2l_entries=Km, fold_bytes=Km * S_H * fs.center.element_size(),
+            state_fold_bytes=sum(x.numel() * x.element_size() for x in
+                                 (fs.m2l_h2, fs.m2l_w, fs.m2l_logc)),
+            adopt_fold_ms=1e3 * eng.last_build_times.get("m2l_fold", 0.0))
+        del eng, fs, ppad, mh
+    torch.cuda.synchronize()
+    force_launches = p2p_cuda.launches
+    _require(force_launches == 4, f"{force_launches} P2P launches == 4 "
+             f"force evaluations")
+    spread = max(_rel_dev(*forces[m])[0] for m in forces)
+    bound = max(2 * spread, 1e-6)
+    dev_sf = _rel_dev(forces["stored"][0], forces["fly"][0])[0]
+    idx = torch.from_numpy(np.random.default_rng(SEED).choice(
+        N, 2048, replace=False)).to(dev)
+    ref = D.direct_kahan_targets(pos[idx], pos, cfg.eps2, cfg.kappa(N))
+    err = {m: float(mean_rel_err(forces[m][0][idx], ref)) for m in forces}
+    print(f"stored fold N={N} p=6 r=1.67 ({smi}): stored vs fly force "
+          f"{dev_sf:.3e} (bound max(2 x eager spread {spread:.3e}, 1e-6)); "
+          f"mean rel err vs Kahan on 2048 targets stored {err['stored']:.3e}"
+          f" fly {err['fly']:.3e} (bound {FORCE_TOL}); P2P launches "
+          f"{force_launches} = force evals 4")
+    print("stored fold timings (CUDA events, ms): " + json.dumps(rows))
+    _require(all(bool(torch.isfinite(f[0]).all()) for f in forces.values()),
+             "finite forces in both modes")
+    _require(dev_sf <= bound, f"stored vs fly {dev_sf:.3e} <= {bound:.3e}")
+    _require(err["stored"] <= FORCE_TOL,
+             f"stored-fold force error {err['stored']:.3e} <= {FORCE_TOL}")
+    del forces, ref, pos
+
+    # (b) 16/2/2 windows with graphs, refresh on, in both modes: three
+    # windows and a step, so that a background re-sort (folded on the
+    # rebuild thread in stored mode) is adopted
+    ccfg = cadence_config(6, 1.67, 16, 2, 2)
+    win = {}
+    for mode, fly in (("fly", "1"), ("stored", "0")):
+        with _m2l_env(fly):
+            win[mode] = _sim_windows(torch, True, ccfg, N, "fmm3_kd", pos_h,
+                                     vel_h, [16, 16, 16, 1], dev)
+        r = win[mode]
+        _require(r["p2p_launches"] == 50, f"{mode} window: "
+                 f"{r['p2p_launches']} P2P launches == 50 force evaluations")
+        _require(r["captures"] >= 1, f"{mode} window captured its step")
+        _require(r["rebuilds"].get("adopt_full", 0) >= 1,
+                 f"{mode} window adopted a re-sort: {r['rebuilds']}")
+    d_win = float((win["stored"]["pos"] - win["fly"]["pos"]).abs().max()
+                  / win["fly"]["pos"].abs().max())
+    print(f"stored fold windows 16/2/2 N={N} graphs ({smi}): stored vs fly "
+          f"max|dpos|/max|pos| {d_win:.3e} (bound 1e-5); " + json.dumps(
+              {m: {k: win[m][k] for k in ("s_per_step", "event_ms_per_step",
+                                          "captures", "capture_s",
+                                          "peak_bytes", "p2p_launches",
+                                          "rebuilds")} for m in win}))
+    _require(d_win <= 1e-5, f"stored vs fly window {d_win:.3e} <= 1e-5")
+
+    # (c) fmm2_kd, ladder row 2's configuration, frozen geometry
+    cfg2 = SimConfig(dim=2, omega0=(1.095, 1.0), fmm_order=4,
+                     tree_radius=2.0, geom_refresh=False)
+    u2 = tuple(w * x for w, x in zip(cfg2.omega0, X_STD[:2]))
+    p2, v2 = ID.init_gaussian(N_KD2, X_STD[:2], u2, dim=2, seed=SEED)
+    w2 = {}
+    for mode, fly in (("fly", "1"), ("stored", "0")):
+        with _m2l_env(fly):
+            w2[mode] = _sim_windows(torch, True, cfg2, N_KD2, "fmm2_kd", p2,
+                                    v2, [12], dev)
+        _require(w2[mode]["p2p_launches_2d"] == 13, f"fmm2_kd {mode}: "
+                 f"{w2[mode]['p2p_launches_2d']} dim-2 P2P launches == 13")
+    d2 = float((w2["stored"]["pos"] - w2["fly"]["pos"]).abs().max()
+               / w2["fly"]["pos"].abs().max())
+    print(f"stored fold fmm2_kd N={N_KD2} p=4 r=2 CO_GEOM_REFRESH=0 "
+          f"({smi}): stored vs fly max|dpos|/max|pos| {d2:.3e} (bound "
+          f"1e-5); " + json.dumps({m: {k: w2[m][k] for k in (
+              "s_per_step", "captures", "p2p_launches_2d", "rebuilds")}
+              for m in w2}))
+    _require(d2 <= 1e-5, f"fmm2_kd stored vs fly {d2:.3e} <= 1e-5")
+    return {3: {"forces": force_launches,
+                "window": {m: win[m]["p2p_launches"] for m in win}},
+            2: {m: w2[m]["p2p_launches_2d"] for m in w2}}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2172,6 +2317,11 @@ def main() -> int:
     ld_launches = _phase_ladder_drift(dev, smi, torch)
     _phase("ladder and drift", t0)
 
+    # ---- 19. the stored-fold M2L against fly mode ----------------------
+    t0 = time.perf_counter()
+    sf_launches = _phase_stored_fold(dev, smi, torch)
+    _phase("stored fold", t0)
+
     row, drow = p2p_rows[0], direct_rows[3, N_CLI]
     # no single PyTorch call computes a masked leaf-pair sum or an
     # all-pairs softened Coulomb sum, so library_ms is null
@@ -2188,6 +2338,7 @@ def main() -> int:
                               "probes": probe_launches["p2p"],
                               "ladder": ld_launches["ladder"]["p2p"],
                               "drift_artifact": ld_launches["drift_artifact"],
+                              "stored_fold": sf_launches[3],
                               **mesh_p2p},
          "max_abs_err": row["max_abs_err"],
          "max_abs_ref": row["max_abs_ref"],
@@ -2231,7 +2382,8 @@ def main() -> int:
                            "eager": graph_rows["fmm2_kd"][1]
                            ["p2p_launches_2d"]},
                 "profile": profile_launches[2], **mesh_p2p2,
-                "ladder_2": ld_launches["ladder_2"]}),
+                "ladder_2": ld_launches["ladder_2"],
+                "stored_fold": sf_launches[2]}),
               ("p2p_dim2_float64", "float64",
                kd2_rows["p2p_dim2_float64"],
                {"kd_variants": kd2_rows["p2p_dim2_float64"]["launches"]}))],

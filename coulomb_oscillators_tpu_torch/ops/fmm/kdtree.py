@@ -26,9 +26,15 @@ below the float32 resolution of a real target's sum (``csrc/p2p.cu``,
 plain PyTorch.  Geometry stays in the working dtype; the native builder and
 traversal take float32 copies, as in the reference.
 
+The M2L geometry has the reference's two modes, chosen by ``CO_M2L_FLY``
+at engine init: fly mode (the default) folds each entry's geometry from
+``center``/``lam`` inside the M2L loop at every force evaluation; stored
+mode (``CO_M2L_FLY=0``) folds it once per list adoption (and again at each
+geometry refresh) into ``m2l_h2``/``m2l_w``/``m2l_logc``, which the loop
+reads.
+
 Not ported (TPU-only workarounds, see ROADMAP.md): the flattened P2P
-operand, optimization barriers, the three-program force split and the
-stored-fold M2L.
+operand, optimization barriers and the three-program force split.
 """
 
 from __future__ import annotations
@@ -78,8 +84,8 @@ def auto_level(n: int, p: int, dens_inhom: float = 1.0,
 
 
 class FmmState(NamedTuple):
-    """Device state frozen between tree rebuilds (the reference's fields
-    minus the stored-fold M2L geometry, which fly mode never reads)."""
+    """Device state frozen between tree rebuilds (the reference's fields,
+    in its order)."""
     perm: torch.Tensor        # [n] sorted slot -> original particle index
     inv_perm: torch.Tensor    # [n] original particle index -> sorted slot
     center: torch.Tensor      # [Mheap, dim] expansion centers
@@ -90,6 +96,11 @@ class FmmState(NamedTuple):
     m2l_tgt: torch.Tensor     # [Km] heap index of target (directed)
     m2l_src: torch.Tensor     # [Km] heap index of source (directed)
     m2l_valid: torch.Tensor   # [Km] bool
+    m2l_h2: torch.Tensor      # [Km, S_H] folded per-entry harmonics
+                              # (stored mode; [1, 1] zeros in fly mode)
+    m2l_w: torch.Tensor       # [Km] lam_src/lam_tgt scale ratio ([1])
+    m2l_logc: torch.Tensor    # [Km] 2D monopole log correction, zeros in
+                              # 3D ([1])
     p2p_row_ptr: torch.Tensor  # [Gsub+1] CSR over the valid prefix
     p2p_col2d: torch.Tensor    # [Gsub, Dmax] packed partner entries
     m2l_gtgt: torch.Tensor     # [Km/g] target heap index per group of g
@@ -108,8 +119,8 @@ def _upload(a, device) -> torch.Tensor:
 
 
 def fmm_state_from_numpy(d: dict, device) -> FmmState:
-    """FmmState from host arrays keyed by field name (extra keys, such as
-    the reference's stored-fold fields, are not read)."""
+    """FmmState from host arrays keyed by field name (a reference state's
+    fields convert directly, stored-fold or fly-mode)."""
     return FmmState(**{k: _upload(np.asarray(d[k]), device)
                        for k in FmmState._fields})
 
@@ -408,8 +419,9 @@ class KdFmmEngine:
 
     `L` forces the tree level; `leaf_target` is the particle count a
     sub-leaf aims at when the level is derived.  The reference's tuning
-    knobs are read at the reference's moments: ``CO_SUB_BOOST`` and
-    ``CO_M2L_GROUP`` here, ``CO_STALE_MARGIN`` at each traversal.
+    knobs are read at the reference's moments: ``CO_SUB_BOOST``,
+    ``CO_M2L_GROUP`` and ``CO_M2L_FLY`` here, ``CO_STALE_MARGIN`` at each
+    traversal.
     """
 
     def __init__(self, config: SimConfig, n: int, L: Optional[int] = None,
@@ -453,6 +465,10 @@ class KdFmmEngine:
         # grouped M2L: per-target entry runs padded to multiples of g
         # (1 disables grouping)
         self.m2l_group = int(os.environ.get("CO_M2L_GROUP", "8"))
+        # M2L geometry folded in the loop at every force evaluation (fly,
+        # the default) or once per adoption and refresh into the state
+        # (stored, CO_M2L_FLY=0); see the module docstring
+        self.m2l_fly = os.environ.get("CO_M2L_FLY", "1") != "0"
         self.st = _static_structure(n, self.L,
                                     pad_to=max(128 >> self.sub_depth, 8))
         self.caps = {"p2p": 8192, "m2l": M2L_CAP_QUANTUM}
@@ -703,18 +719,35 @@ class KdFmmEngine:
         col2d = _build_col2d(p2p, row_ptr, G, self.G_blk, dmax)
         bt["lists"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        center_d = _upload(center, device).to(self.dtype)
         out = FmmState(
             perm=_upload(perm, device), inv_perm=_upload(inv_perm, device),
-            center=_upload(center, device).to(self.dtype),
-            lam=_upload(lam, device).to(self.dtype),
+            center=center_d, lam=_upload(lam, device).to(self.dtype),
             p2p_tgt=_upload(p2p_t, device), p2p_src=_upload(p2p_s, device),
             p2p_valid=_upload(p2p_v, device),
             m2l_tgt=_upload(m2l_t, device), m2l_src=_upload(m2l_s, device),
             m2l_valid=_upload(m2l_v, device),
+            # the reference's placeholders: fly mode folds in the loop
+            m2l_h2=center_d.new_zeros(1, 1), m2l_w=center_d.new_zeros(1),
+            m2l_logc=center_d.new_zeros(1),
             p2p_row_ptr=_upload(row_ptr, device),
             p2p_col2d=_upload(col2d, device),
             m2l_gtgt=_upload(m2l_gt, device))
         bt["upload"] = time.perf_counter() - t0
+        if not self.m2l_fly:
+            t0 = time.perf_counter()
+            h2, w, logc = self._m2l_geo(out.center, out.lam, out.m2l_tgt,
+                                        out.m2l_src, out.m2l_valid)
+            out = out._replace(m2l_h2=h2, m2l_w=w, m2l_logc=logc)
+            if center_d.device.type == "cuda":
+                # the fold is queued on the calling thread's stream (the
+                # rebuild thread's, for a background rebuild); wait for it
+                # here, so that no consumer on any stream or thread adopts
+                # a fold that has not finished
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(center_d.device))
+                done.synchronize()
+            bt["m2l_fold"] = time.perf_counter() - t0
         self.last_build_times = bt
         return out
 
@@ -772,7 +805,8 @@ class KdFmmEngine:
         """Node centers / length scales from the CURRENT padded positions
         (one leaf reduce + heap sweep on device), lists and permutation
         frozen.  Fly-mode M2L reads geometry straight from center/lam, so
-        nothing else needs refreshing."""
+        nothing else needs refreshing; stored mode folds the M2L geometry
+        again from the new center/lam (twin of ``geom_refresh_in_jit``)."""
         mn, mx, sm = self._leaf_stats(ppad)
         lmn, lmx, lsm = [mn], [mx], [sm]
         for _ in range(self.L):
@@ -786,7 +820,12 @@ class KdFmmEngine:
         center = smh / self.dev(ppad.device).multf[:, None]
         lam = torch.clamp(0.5 * torch.linalg.vector_norm(mxh - mnh, dim=1),
                           min=1e-30)
-        return fs._replace(center=center, lam=lam)
+        if self.m2l_fly:
+            return fs._replace(center=center, lam=lam)
+        h2, w, logc = self._m2l_geo(center, lam, fs.m2l_tgt, fs.m2l_src,
+                                    fs.m2l_valid)
+        return fs._replace(center=center, lam=lam, m2l_h2=h2, m2l_w=w,
+                           m2l_logc=logc)
 
     # ---------------- padded layout ----------------
     def pad_array(self, x: torch.Tensor, fs: FmmState,
@@ -980,35 +1019,74 @@ class KdFmmEngine:
             mpoles[l] = shifted.reshape(m, 2, -1).sum(dim=1)
         return torch.cat(mpoles, dim=0)
 
+    def _m2l_chunk(self, K: int) -> int:
+        """Entries per chunk of the M2L loop over K entries (and of the
+        stored fold): M2L_LOOP_CHUNK, or for the dense forms (p >
+        SPARSE_P_MAX), which hold a [chunk, S_Lt, S_M] operator per entry,
+        ~2^26 elements; a multiple of the group size."""
+        t, g = self.tables, self.m2l_group
+        target = (M2L_LOOP_CHUNK if t.p <= mop.SPARSE_P_MAX
+                  else max(g, (1 << 26) // (t.S_Lt * t.S_M)))
+        return _pick_chunk(K, target, g)
+
+    def _fold(self, center, lam, a_cl, bi, vv):
+        """(H2, w, logc) of a run of M2L entries (target heap index a_cl
+        clamped below Mheap, source bi, validity vv) from center/lam; pad
+        entries take R = 1, so none is inf or NaN."""
+        R = tuple(torch.where(vv, center[a_cl, k] - center[bi, k], 1.0)
+                  for k in range(self.dim))
+        return mop.m2l_fold_geo(self.tables, R, lam[a_cl], lam[bi])
+
+    def _m2l_geo(self, center, lam, m2l_tgt, m2l_src, m2l_valid):
+        """Stored-mode fold of every M2L entry's geometry (twin of the
+        reference's ``m2l_geo``): (H2 [Km, S_H], w [Km], logc [Km]), folded
+        chunk by chunk into preallocated tensors (the unchunked fold's
+        temporaries are several times its result), each entry as the fly
+        loop folds it."""
+        Mheap = _heap_off(self.L + 1)
+        K = m2l_tgt.shape[0]
+        h2 = center.new_empty(K, self.tables.S_H)
+        w = center.new_empty(K)
+        logc = center.new_empty(K)
+        chunk = self._m2l_chunk(K)
+        for c0 in range(0, K, chunk):
+            s = slice(c0, c0 + chunk)
+            h2[s], w[s], logc[s] = self._fold(
+                center, lam, m2l_tgt[s].long().clamp(max=Mheap - 1),
+                m2l_src[s].long(), m2l_valid[s])
+        return h2, w, logc
+
     def _stage_m2l(self, mpole_heap: torch.Tensor,
                    fs: FmmState) -> torch.Tensor:
-        """Grouped fly-mode M2L over the directed entry list (t <- s):
-        per chunk, gather source multipoles and the entries' geometry from
-        center/lam, apply m2l_fold_geo -> m2l_sparse_pre, dense-reduce each
-        group of g same-target entries (g = 1: none), and add the groups
-        into an [Mheap+1, S_Lt] accumulator with a sorted index_add_ (the
-        twin's segment_sum).  Returns local_heap [Mheap, S_Lt]."""
+        """Grouped M2L over the directed entry list (t <- s): per chunk,
+        gather source multipoles and the entries' geometry (fly mode: fold
+        it from center/lam; stored mode: read the chunk of the stored
+        fold), apply m2l_sparse_pre, dense-reduce each group of g
+        same-target entries (g = 1: none), and add the groups into an
+        [Mheap+1, S_Lt] accumulator with a sorted index_add_ (the twin's
+        segment_sum).  Returns local_heap [Mheap, S_Lt]."""
         t = self.tables
         Mheap = _heap_off(self.L + 1)
         g = self.m2l_group
         K = fs.m2l_tgt.shape[0]
         if g > 1 and fs.m2l_gtgt.shape[0] * g != K:
             raise ValueError("M2L lists are not in the grouped layout")
-        # the dense forms (p > SPARSE_P_MAX) hold a [chunk, S_Lt, S_M]
-        # operator per entry: bound it to ~2^26 elements
-        target = (M2L_LOOP_CHUNK if t.p <= mop.SPARSE_P_MAX
-                  else max(g, (1 << 26) // (t.S_Lt * t.S_M)))
-        chunk = _pick_chunk(K, target, g)
-        center, lam = fs.center, fs.lam
+        if not self.m2l_fly and fs.m2l_h2.shape[0] != K:
+            raise ValueError("stored-mode M2L needs a state with the stored "
+                             "fold (this one was built in fly mode)")
+        chunk = self._m2l_chunk(K)
         acc = torch.zeros(Mheap + 1, t.S_Lt, dtype=mpole_heap.dtype,
                           device=mpole_heap.device)
         for c0 in range(0, K, chunk):
             bi = fs.m2l_src[c0:c0 + chunk].long()
             vv = fs.m2l_valid[c0:c0 + chunk]
-            a_cl = fs.m2l_tgt[c0:c0 + chunk].long().clamp(max=Mheap - 1)
-            R = tuple(torch.where(vv, center[a_cl, k] - center[bi, k], 1.0)
-                      for k in range(self.dim))
-            H2, w, logc = mop.m2l_fold_geo(t, R, lam[a_cl], lam[bi])
+            if self.m2l_fly:
+                a_cl = fs.m2l_tgt[c0:c0 + chunk].long().clamp(max=Mheap - 1)
+                H2, w, logc = self._fold(fs.center, fs.lam, a_cl, bi, vv)
+            else:
+                H2, w, logc = (fs.m2l_h2[c0:c0 + chunk],
+                               fs.m2l_w[c0:c0 + chunk],
+                               fs.m2l_logc[c0:c0 + chunk])
             La = mop.m2l_sparse_pre(t, mpole_heap[bi], H2, w, logc)
             La = (La * vv[:, None]).reshape(-1, g, t.S_Lt).sum(dim=1)
             # g = 1: every entry is its own group (pads carry Mheap)

@@ -38,8 +38,10 @@ the frozen ``FmmState``, as the reference's does
 geometry from the live positions before every evaluation.  The mesh mode
 is the twin of the reference's mesh mode, not of the single-device window.
 
-The port is fly-mode only, so :class:`PShardLists` drops the reference's
-stored-fold fields (``m2l_h2``, ``m2l_w``, ``m2l_logc``).
+A stored M2L fold (``CO_M2L_FLY=0``) splits with its entries; fly mode
+carries the reference's per-rank placeholders.  With no geometry refresh
+the slices taken at :meth:`PShardedKdFmm.localize` stay those of the
+adopted state.
 """
 
 from __future__ import annotations
@@ -70,6 +72,10 @@ class PShardLists(NamedTuple):
     m2l_tgt: torch.Tensor             # [ndev, Km]
     m2l_src: torch.Tensor
     m2l_val: torch.Tensor
+    m2l_h2: torch.Tensor              # [ndev, Km, S_H] stored fold (fly
+                                      # mode: [ndev, 1, 1] zeros)
+    m2l_w: torch.Tensor               # [ndev, Km] ([ndev, 1])
+    m2l_logc: torch.Tensor            # [ndev, Km] ([ndev, 1])
     m2l_gtgt: torch.Tensor            # [ndev, Km/g] grouped-M2L targets
                                       # (group runs never straddle the even
                                       # split: Km is a chunk multiple)
@@ -84,6 +90,9 @@ class PShardLocal(NamedTuple):
     m2l_tgt: torch.Tensor             # [Km]
     m2l_src: torch.Tensor
     m2l_val: torch.Tensor
+    m2l_h2: torch.Tensor              # the stored fold's rows, or the
+    m2l_w: torch.Tensor               # placeholders
+    m2l_logc: torch.Tensor
     m2l_gtgt: torch.Tensor
     # the CSR's entries as a padded flat list for the plain near-field sum
     # (a CPU rank; else empty): the target row of each entry,
@@ -159,11 +168,19 @@ def shard_pair_lists(eng: KdFmmEngine, fs: FmmState, ndev: int,
     Km = fs.m2l_tgt.shape[0]
     assert Km % ndev == 0, f"m2l cap {Km} not divisible by mesh {ndev}"
     Kml = Km // ndev
+    # fly mode: per-rank placeholders (the loop folds from center/lam)
+    folded = fs.m2l_h2.shape[0] == Km
     lists = PShardLists(
         p2p_tgt=tuple(tgt_h), p2p_src=tuple(src_h), p2p_val=tuple(val_h),
         m2l_tgt=fs.m2l_tgt.reshape(ndev, Kml),
         m2l_src=fs.m2l_src.reshape(ndev, Kml),
         m2l_val=fs.m2l_valid.reshape(ndev, Kml),
+        m2l_h2=(fs.m2l_h2.reshape(ndev, Kml, -1) if folded
+                else fs.m2l_h2.new_zeros(ndev, 1, 1)),
+        m2l_w=(fs.m2l_w.reshape(ndev, Kml) if folded
+               else fs.m2l_w.new_zeros(ndev, 1)),
+        m2l_logc=(fs.m2l_logc.reshape(ndev, Kml) if folded
+                  else fs.m2l_logc.new_zeros(ndev, 1)),
         m2l_gtgt=fs.m2l_gtgt.reshape(ndev, -1)
         if fs.m2l_gtgt.shape[0] % ndev == 0 and fs.m2l_gtgt.shape[0] > 1
         else torch.zeros((ndev, 1), dtype=torch.int32,
@@ -287,6 +304,9 @@ class PShardedKdFmm:
             m2l_tgt=lists.m2l_tgt[d].to(device),
             m2l_src=lists.m2l_src[d].to(device),
             m2l_val=lists.m2l_val[d].to(device),
+            m2l_h2=lists.m2l_h2[d].to(device),
+            m2l_w=lists.m2l_w[d].to(device),
+            m2l_logc=lists.m2l_logc[d].to(device),
             m2l_gtgt=lists.m2l_gtgt[d].to(device),
             p2p_tgt=torch.from_numpy(tgt).to(device),
             p2p_src=torch.from_numpy(ent).to(device))
@@ -326,7 +346,9 @@ class PShardedKdFmm:
         mp_leaf = mesh.all_gather(eng._p2m(V, lo))            # [G, S_M]
         mpole_heap = eng.m2m_up(mp_leaf, fs)
         fs_m2l = fs._replace(m2l_tgt=loc.m2l_tgt, m2l_src=loc.m2l_src,
-                             m2l_valid=loc.m2l_val, m2l_gtgt=loc.m2l_gtgt)
+                             m2l_valid=loc.m2l_val, m2l_h2=loc.m2l_h2,
+                             m2l_w=loc.m2l_w, m2l_logc=loc.m2l_logc,
+                             m2l_gtgt=loc.m2l_gtgt)
         local_heap = mesh.all_reduce_sum(eng._stage_m2l(mpole_heap, fs_m2l))
         leaf_local = eng.l2l_down(local_heap, fs)             # [G, S_Lt]
         return eng._l2p(V, leafl, leaf_local[lo:lo + self.Gl], lo)

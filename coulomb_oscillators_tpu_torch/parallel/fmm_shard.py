@@ -36,8 +36,10 @@ def pad_pairs_for_mesh(fs: FmmState, ndev: int, group: int = 1) -> FmmState:
     """Pad the M2L entry list to a multiple of ``ndev * group`` (the
     engine's power-of-two caps already are one for power-of-two meshes), so
     that an even split falls on boundaries of the `group`-entry runs; the
-    grouped targets are padded alongside.  The near field is split by rows
-    (:func:`shard_rows`), so the flat P2P lists stay as they are."""
+    grouped targets are padded alongside, and so is a stored fold, with the
+    reference's fills (h2 0, w 1, which keeps ``w``'s powers finite, logc
+    0).  The near field is split by rows (:func:`shard_rows`), so the flat
+    P2P lists stay as they are."""
     Mheap = fs.center.shape[0]
     K = fs.m2l_tgt.shape[0]
     q = ndev * group
@@ -46,12 +48,16 @@ def pad_pairs_for_mesh(fs: FmmState, ndev: int, group: int = 1) -> FmmState:
         return fs
 
     def pad1(x, n, fill):
-        return torch.cat([x, torch.full((n,), fill, dtype=x.dtype,
-                                        device=x.device)])
+        return torch.cat([x, torch.full((n,) + x.shape[1:], fill,
+                                        dtype=x.dtype, device=x.device)])
 
+    folded = fs.m2l_h2.shape[0] == K
     return fs._replace(
         m2l_tgt=pad1(fs.m2l_tgt, pad, Mheap), m2l_src=pad1(fs.m2l_src, pad, 0),
         m2l_valid=pad1(fs.m2l_valid, pad, False),
+        m2l_h2=pad1(fs.m2l_h2, pad, 0.0) if folded else fs.m2l_h2,
+        m2l_w=pad1(fs.m2l_w, pad, 1.0) if folded else fs.m2l_w,
+        m2l_logc=pad1(fs.m2l_logc, pad, 0.0) if folded else fs.m2l_logc,
         m2l_gtgt=(pad1(fs.m2l_gtgt, pad // group, Mheap) if group > 1
                   else fs.m2l_gtgt))
 
@@ -84,9 +90,13 @@ def make_sharded_force(eng: KdFmmEngine, mesh: Mesh, axis: str = "dp"):
         fs = pad_pairs_for_mesh(fs, ndev, g)
         per = fs.m2l_tgt.shape[0] // ndev
         lo, hi = rank * per, (rank + 1) * per
+        # a stored fold splits with its entries; fly-mode placeholders stay
+        folded = fs.m2l_h2.shape[0] == fs.m2l_tgt.shape[0]
+        fold = {f: getattr(fs, f)[lo:hi] if folded else getattr(fs, f)
+                for f in ("m2l_h2", "m2l_w", "m2l_logc")}
         fs_d = fs._replace(
             m2l_tgt=fs.m2l_tgt[lo:hi], m2l_src=fs.m2l_src[lo:hi],
-            m2l_valid=fs.m2l_valid[lo:hi],
+            m2l_valid=fs.m2l_valid[lo:hi], **fold,
             m2l_gtgt=(fs.m2l_gtgt[lo // g:hi // g] if g > 1
                       else fs.m2l_gtgt),
             p2p_row_ptr=shard_rows(fs.p2p_row_ptr, ndev, rank))

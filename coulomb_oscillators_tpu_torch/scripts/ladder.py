@@ -17,7 +17,9 @@ the step graph's captures and the peak device memory.
 
 ``CO_GEOM_REFRESH=0`` runs the reference-equivalent freeze-and-drift mode
 (``geom_refresh=False``: the expansion geometry stays frozen with the
-lists for a whole window), as in the twin; each row says which mode ran.
+lists for a whole window), as in the twin; each row says which mode ran,
+and, for the kd engines, which M2L mode (``CO_M2L_FLY``, read by the
+engine: fly by default, the stored fold with ``CO_M2L_FLY=0``).
 If config 3b raises, its row records the error and the ladder goes on, as
 in the twin; any other config that raises ends the run.
 
@@ -99,6 +101,8 @@ def run(tag, config, n, engine, device, steps=12, uniform=False,
             "p": config.fmm_order, "r": config.tree_radius,
             "tree_steps": config.tree_steps,
             "geom_refresh": config.geom_refresh,
+            # the kd engines' M2L mode (CO_M2L_FLY); None for the others
+            "m2l_fly": getattr(sim._fmm, "m2l_fly", None),
             "steps_run": 4 + repeats * steps, "setup_s": setup_s,
             "finite": finite,
             **graph_info(sim),

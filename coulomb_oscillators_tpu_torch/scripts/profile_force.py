@@ -9,7 +9,12 @@ Twin of ``scripts/profile_force.py``.  For the kd engines (``fmm3_kd``,
   * the gather-only path (perm -> pad -> unpad -> inv_perm);
   * each stage alone on padded blocks: P2M+M2M, M2L, L2L+L2P, P2P, and
     the geometry refresh; with the P2P tile count and G lane-pairs/s;
-  * the steady rebuild with the engine's own breakdown.
+  * the steady rebuild with the engine's own breakdown;
+  * the M2L mode (``CO_M2L_FLY``, read when the engine is made: fly, the
+    default, or stored with ``CO_M2L_FLY=0``), the stored fold's size
+    (Km x S_H x itemsize, whether or not this mode stores it) and, on the
+    card, the peak of allocated device memory.  In stored mode the M2L row
+    reads the stored fold and the geometry refresh row folds it again.
 
 P2M+M2M and L2L+L2P each evaluate the leaf-frame monomials, which the
 padded force evaluates once: `leaf_frame_ms` is that double count.  For
@@ -140,6 +145,9 @@ def profile_engine(engine: str, n: int, p: int, r: float, device,
     cfg = _config(engine, p, r)
     pos = torch.from_numpy(_positions(engine, n, cfg)).to(device)
     eng = make_engine_object(cfg, n, engine)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     st = eng.build(pos)
     C.sync(device)
@@ -160,7 +168,7 @@ def profile_engine(engine: str, n: int, p: int, r: float, device,
            "device": C.device_info(device), "first_build_s": build_s,
            "stages_ms": record,
            "summary": prof.stage_summary(record, record[whole], parts)}
-    if torch.device(device).type == "cuda":
+    if cuda:
         # the kernels' own time beside the event time: a stage whose event
         # time is far above it waits on the host's launches
         dev_ms = prof.stage_device_times(fns, device)
@@ -171,6 +179,10 @@ def profile_engine(engine: str, n: int, p: int, r: float, device,
     if kd:
         out["config"]["C"] = eng.st.C
         out["counts"] = dict(eng.last_counts)
+        out["m2l_fly"] = eng.m2l_fly
+        out["m2l_entries"] = st.m2l_tgt.shape[0]
+        out["m2l_fold_bytes"] = (st.m2l_tgt.shape[0] * eng.tables.S_H
+                                 * st.center.element_size())
         # tile lane-pairs: each (sub-leaf, block) tile is C x C_blk
         q = int(st.p2p_valid.sum())
         out["p2p_tiles"] = q
@@ -195,13 +207,19 @@ def profile_engine(engine: str, n: int, p: int, r: float, device,
     out["rebuild_steady_ms"] = tt * 1e3
     out["rebuild_breakdown_ms"] = {
         k: v * 1e3 for k, v in getattr(eng, "last_build_times", {}).items()}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(device) if cuda \
+        else None
     return out
 
 
 def print_record(rec: dict) -> None:
     c = rec["config"]
+    mode = ""
+    if "m2l_fly" in rec:
+        mode = (f" m2l={'fly' if rec['m2l_fly'] else 'stored'} "
+                f"fold={rec['m2l_fold_bytes'] / 2**20:.1f} MiB")
     print(f"{rec['engine']} n={c['n']} p={c['p']} r={c['r']} L={c['L']} "
-          f"device={rec['device']}")
+          f"device={rec['device']}{mode}")
     dev_ms = rec.get("stages_device_ms", {})
     for k, v in rec["stages_ms"].items():
         d = f"   device {dev_ms[k]:9.3f} ms" if k in dev_ms else ""
@@ -219,8 +237,10 @@ def print_record(rec: dict) -> None:
               f"{rec['p2p_G_lane_int_per_s']:.1f} G lane-pairs/s; share of "
               f"the padded force {rec['p2p_share_of_padded_force']:.3f}")
     bt = {k: round(v, 1) for k, v in rec["rebuild_breakdown_ms"].items()}
+    peak = ("" if rec.get("peak_bytes") is None
+            else f"  peak {rec['peak_bytes'] / 2**30:.3f} GiB")
     print(f"  rebuild steady {rec['rebuild_steady_ms']:.1f} ms  breakdown="
-          f"{bt} (ms)", flush=True)
+          f"{bt} (ms){peak}", flush=True)
 
 
 def trace_force(n: int, p: int, r: float, device, logdir: str,
@@ -305,6 +325,7 @@ def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
             C.sync(device)
             wall_traced = time.perf_counter() - t0
         margin = np.asarray(sim._fmm.stale_margin_abs).tolist()
+        fly = sim._fmm.m2l_fly
         rebuilds = dict(sim.rebuilds)
         info = C.graph_info(sim)
         peak = torch.cuda.max_memory_allocated(device) if cuda else None
@@ -317,7 +338,7 @@ def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
             "config": {"engine": engine, "precision": precision,
                        "n": n, "p": p, "r": r, "ts": ts,
                        "resort_every": resort, "pipeline": pipeline,
-                       "stale_margin": margin},
+                       "stale_margin": margin, "m2l_fly": fly},
             "device": C.device_info(device), "window_wall_s": wall,
             "wall_ms_per_step": wall / ts * 1e3,
             "traced_wall_ms_per_step": wall_traced / ts * 1e3,

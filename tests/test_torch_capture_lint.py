@@ -13,7 +13,9 @@ tensor made from Python data), ``masked_select``, ``unique`` or
 device-changing copy, and the same operation sequence (names and shapes);
 the sequence stays the same after the tree is replaced at a window
 boundary (the kd pipeline's priming refresh and an adopted background
-re-sort with its repad; a synchronous rebuild for the grid engines).
+re-sort with its repad; a synchronous rebuild for the grid engines).  The
+kd engines are checked again with the stored-fold M2L (``CO_M2L_FLY=0``),
+whose step refolds the M2L geometry in its geometry refresh.
 
 The plain P2P sum that the kd engine runs on its padded pair list equals
 the CSR form's bitwise on the CPU.  No JAX.
@@ -113,6 +115,26 @@ def _state(engine, dim):
 
 @pytest.mark.parametrize("engine", list(ENGINES))
 def test_window_step_is_capture_clean(engine):
+    _assert_capture_clean(engine)
+
+
+@pytest.mark.parametrize("engine", ["fmm3_kd", "fmm2_kd"])
+def test_window_step_is_capture_clean_with_the_stored_fold(monkeypatch,
+                                                           engine):
+    """The same checks with the stored-fold M2L (CO_M2L_FLY=0): the
+    step's geometry refresh folds the M2L geometry again and its force
+    reads the fold."""
+    monkeypatch.setenv("CO_M2L_FLY", "0")
+    sim = _assert_capture_clean(engine)
+    fs = sim._fstate
+    assert not sim._fmm.m2l_fly
+    assert fs.m2l_h2.shape == (fs.m2l_tgt.shape[0], sim._fmm.tables.S_H)
+
+
+def _assert_capture_clean(engine):
+    """Steps of `engine`'s Simulator before and after its tree is replaced
+    issue no forbidden operation and the same sequence; returns the closed
+    Simulator."""
     dim = ENGINES[engine]
     sim = Simulator(_config(engine, dim), N, engine=engine)
     try:
@@ -144,6 +166,7 @@ def test_window_step_is_capture_clean(engine):
         assert sim.graph is None                       # eager on the CPU
     finally:
         sim.close()
+    return sim
 
 
 @pytest.mark.parametrize("dim", [3, 2])

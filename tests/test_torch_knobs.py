@@ -36,7 +36,8 @@ torch.set_num_threads(1)
 X_STD = (0.003, 0.001, 0.01)
 N = 2048
 KNOBS = ("CO_SUB_BOOST", "CO_M2L_GROUP", "CO_STALE_MARGIN",
-         "CO_STALE_MARGIN_FACTOR", "CO_SORT_MODE", "CO_CUDA_GRAPHS")
+         "CO_STALE_MARGIN_FACTOR", "CO_SORT_MODE", "CO_CUDA_GRAPHS",
+         "CO_M2L_FLY")
 
 
 @pytest.fixture(autouse=True)
@@ -83,9 +84,7 @@ def test_parallel_modules_have_the_references_public_names():
                 assert tp[:len(jp)] == jp, (mod, k, jp, tp)
     from coulomb_oscillators_tpu.parallel import fmm_pshard as jps
     from coulomb_oscillators_tpu_torch.parallel import fmm_pshard as tps
-    assert set(jps.PShardLists._fields) - set(tps.PShardLists._fields) == \
-        {"m2l_h2", "m2l_w", "m2l_logc"}          # stored-fold M2L only
-    assert set(tps.PShardLists._fields) <= set(jps.PShardLists._fields)
+    assert tps.PShardLists._fields == jps.PShardLists._fields
 
 
 def test_default_engine_is_direct_in_both():
@@ -181,6 +180,27 @@ def test_co_sub_boost_precedence(monkeypatch):
     eng = KdFmmEngine(TConfig(), N)
     monkeypatch.setenv("CO_SUB_BOOST", "1.1")
     assert eng.mac_sub_boost == 1.5
+
+
+@pytest.mark.parametrize("value", [None, "1", "0", "", "no"])
+def test_co_m2l_fly_is_read_at_init_as_the_reference_reads_it(monkeypatch,
+                                                               value):
+    """CO_M2L_FLY: "0" alone selects the stored fold, anything else (or
+    unset) fly mode, as in the reference; read in __init__, so a later
+    change does not move a built engine."""
+    if value is not None:
+        monkeypatch.setenv("CO_M2L_FLY", value)
+    t = KdFmmEngine(TConfig(**CFG), N)
+    assert t.m2l_fly is JEngine(JConfig(**CFG), N).m2l_fly is (value != "0")
+    monkeypatch.setenv("CO_M2L_FLY", "1" if value == "0" else "0")
+    assert t.m2l_fly is (value != "0")
+
+
+def test_state_fields_are_the_references():
+    """FmmState carries the reference's fields in its order, the stored
+    fold's three included."""
+    from coulomb_oscillators_tpu.ops.fmm.kdtree import FmmState as JState
+    assert FmmState._fields == JState._fields
 
 
 @pytest.mark.parametrize("g", [1, 4, 16])

@@ -65,23 +65,19 @@ def _rel(a, b):
 
 def _reference(n, L=None):
     """The reference engine and its state on the beam at `n`, with M2L
-    group 8 and 1."""
-    import os
+    group 8 and 1, and with group 8 in stored-fold mode (CO_M2L_FLY=0)."""
     pos, vel = _beam(n)
     out = {"pos": pos, "vel": vel}
-    for key, g in (("g8", "8"), ("g1", "1")):
-        old = os.environ.get("CO_M2L_GROUP")
-        os.environ["CO_M2L_GROUP"] = g
-        try:
+    for key, g, fly in (("g8", "8", "1"), ("g1", "1", "1"),
+                        ("s8", "8", "0")):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("CO_M2L_GROUP", g)
+            mp.setenv("CO_M2L_FLY", fly)
             eng = JEngine(JConfig(**CFG), n, use_pallas=True, L=L)
-        finally:
-            if old is None:
-                del os.environ["CO_M2L_GROUP"]
-            else:
-                os.environ["CO_M2L_GROUP"] = old
         fs = eng.build(jnp.asarray(pos))
         out[key] = (eng, fs)
     out["states"] = {k: _np_state(out[k][1]) for k in ("g8", "g1")}
+    out["stored"] = _np_state(out["s8"][1])
     return out
 
 
@@ -125,6 +121,7 @@ def ranks(ref, direct_cases):
                 spec["direct"] = (direct_cases, EPS2, KAPPA)
             if ndev == 2:
                 spec["forces"]["small"] = args(N_SMALL, L_SMALL)
+                spec["stored"] = (CFG, ref[N]["pos"], ref[N]["stored"])
             cache[ndev] = PM.spawn(W.parallel_scenarios, ndev, spec,
                                    device="cpu", timeout=120)
         return cache[ndev]
@@ -153,6 +150,10 @@ def _assert_lists_equal(tl, th, jl, jh):
     for f in ("m2l_tgt", "m2l_src", "m2l_val", "m2l_gtgt"):
         a, b = getattr(tl, f).numpy(), np.asarray(getattr(jl, f))
         assert a.dtype == b.dtype and np.array_equal(a, b), f
+    # the stored fold (CO_M2L_FLY=0) or fly mode's per-rank placeholders
+    for f in ("m2l_h2", "m2l_w", "m2l_logc"):
+        a, b = getattr(tl, f).numpy(), np.asarray(getattr(jl, f))
+        assert a.shape == b.shape and np.array_equal(a, b), f
 
 
 @pytest.mark.parametrize("ndev", [2, 4, 8])
@@ -180,6 +181,55 @@ def test_shard_pair_lists_equal_reference(ref, ndev):
             caps[h] = v.shape[1]
         assert {h: teng._pshard_caps[h] for h in th} == \
             {h: jeng._pshard_caps[h] for h in jh}
+
+
+@pytest.mark.parametrize("ndev", [2, 4, 8])
+def test_shard_pair_lists_carry_the_stored_fold(ref, ndev):
+    """On a stored-fold state (CO_M2L_FLY=0) the lists split the fold
+    with the entries, [ndev, Km/ndev, S_H] / [ndev, Km/ndev] twice, equal
+    to the reference's; fly-mode states carry [ndev, 1, 1] / [ndev, 1]
+    zeros there (the check in _assert_lists_equal)."""
+    jeng, jfs = ref[N]["s8"]
+    jeng.__dict__.pop("_pshard_caps", None)   # fresh per-hop capacities
+    teng = KdFmmEngine(TConfig(**CFG), N)
+    tfs = fmm_state_from_numpy(ref[N]["stored"], "cpu")
+    tl, th = TPS.shard_pair_lists(teng, tfs, ndev)
+    _assert_lists_equal(tl, th, *JPS.shard_pair_lists(jeng, jfs, ndev))
+    Km = tfs.m2l_tgt.shape[0]
+    assert tl.m2l_h2.shape == (ndev, Km // ndev, teng.tables.S_H)
+    assert np.array_equal(tl.m2l_w.reshape(-1).numpy(),
+                          ref[N]["stored"]["m2l_w"])
+    fly, _ = TPS.shard_pair_lists(
+        teng, fmm_state_from_numpy(ref[N]["states"]["g8"], "cpu"), ndev)
+    assert fly.m2l_h2.shape == (ndev, 1, 1) and not fly.m2l_h2.any()
+
+
+def test_pad_pairs_for_mesh_pads_the_stored_fold(ref):
+    """pad_pairs_for_mesh on a stored-fold state pads the fold alongside
+    the entries with the reference's fills (h2 0, w 1, logc 0) and keeps
+    the rest; fly-mode placeholders are left as they are."""
+    from coulomb_oscillators_tpu.parallel import fmm_shard as JFS
+    from coulomb_oscillators_tpu_torch.parallel import fmm_shard as TFS
+    ndev, g = 3, 8
+    fs = fmm_state_from_numpy(ref[N]["stored"], "cpu")
+    K = fs.m2l_tgt.shape[0]
+    out = TFS.pad_pairs_for_mesh(fs, ndev, g)
+    K2 = out.m2l_tgt.shape[0]
+    assert K2 % (ndev * g) == 0 and K2 > K
+    jout = JFS.pad_pairs_for_mesh(ref[N]["s8"][1], ndev)
+    jK = np.asarray(jout.m2l_tgt).shape[0]
+    assert jK > K                       # the reference pads too
+    for f in ("m2l_h2", "m2l_w", "m2l_logc"):
+        a = getattr(out, f).numpy()
+        assert a.shape[0] == K2
+        assert np.array_equal(a[:K], ref[N]["stored"][f]), f
+        pad = np.unique(a[K:])
+        assert np.array_equal(pad, np.unique(np.asarray(getattr(jout, f))[K:]))
+        assert pad.tolist() == [1.0 if f == "m2l_w" else 0.0], f
+    assert not out.m2l_valid[K:].any()
+    fly = fmm_state_from_numpy(ref[N]["states"]["g8"], "cpu")
+    pf = TFS.pad_pairs_for_mesh(fly, ndev, g)
+    assert pf.m2l_h2.shape == (1, 1) and pf.m2l_w.shape == (1,)
 
 
 @pytest.mark.parametrize("ndev", [2, 4, 8])
@@ -368,6 +418,24 @@ def test_pshard_force_at_the_dry_run_level_matches_reference_engine(ref,
     assert got["hops"] == JPS.shard_pair_lists(jeng, jfs, 2)[1]
     assert _rel(got["pshard_force"], _jforce(jeng, r["pos"], jfs)) < 1e-5
     assert _rel(got["pshard_force"], got["single_force"]) < 2e-6
+
+
+def test_sharded_stored_fold_matches_single_device(ref, ranks):
+    """Two gloo ranks, stored-fold M2L (CO_M2L_FLY=0) on the reference's
+    stored-mode state: the particle-sharded force (each rank's rows of the
+    fold) within 2e-6 of the port's single-device stored-mode force, the
+    pair-sharded one within 2e-6 too, and the single-device force within
+    1e-5 of the reference's stored-mode force (the bounds of the fly-mode
+    tests above)."""
+    got = ranks(2)["stored"]
+    jeng, jfs = ref[N]["s8"]
+    Km = ref[N]["stored"]["m2l_tgt"].shape[0]
+    assert got["m2l_fly"] is False
+    assert got["local_fold_rows"] == (Km // 2, jeng.tables.S_H)
+    assert _rel(got["pshard_force"], got["single_force"]) < 2e-6
+    assert _rel(got["shard_force"], got["single_force"]) < 2e-6
+    assert _rel(got["single_force"], _jforce(jeng, ref[N]["pos"], jfs)) \
+        < 1e-5
 
 
 @pytest.mark.parametrize("ndev", [2, 4])

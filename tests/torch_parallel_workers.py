@@ -90,21 +90,48 @@ def sharded_direct(mesh, cases, eps2, kappa):
     return out
 
 
-def _engine(cfg_kw, n, group=None, L=None):
-    """The port's kd engine, with the M2L group size forced when given
-    (the engine reads CO_M2L_GROUP when it is constructed)."""
+def _engine(cfg_kw, n, group=None, L=None, fly=None):
+    """The port's kd engine, with the M2L group size and the M2L mode
+    forced when given (the engine reads CO_M2L_GROUP and CO_M2L_FLY when
+    it is constructed)."""
     import os
-    old = os.environ.get("CO_M2L_GROUP")
-    if group is not None:
-        os.environ["CO_M2L_GROUP"] = str(group)
+    env = {k: str(v) for k, v in (("CO_M2L_GROUP", group),
+                                  ("CO_M2L_FLY", fly)) if v is not None}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         return KdFmmEngine(SimConfig(**cfg_kw), n, L=L)
     finally:
-        if group is not None:
-            if old is None:
-                del os.environ["CO_M2L_GROUP"]
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
             else:
-                os.environ["CO_M2L_GROUP"] = old
+                os.environ[k] = v
+
+
+def stored_forces(mesh, cfg_kw, pos, state):
+    """Stored-fold M2L (CO_M2L_FLY=0) on a reference-built stored-mode
+    state: the particle-sharded force, the pair-sharded force and the
+    single-device padded force, all on the same lists."""
+    torch.set_num_threads(1)
+    dev = mesh.device
+    n = pos.shape[0]
+    x = torch.from_numpy(pos).to(dev)
+    eng = _engine(cfg_kw, n, fly=0)
+    fs = fmm_state_from_numpy(state, dev)
+    ps, _ = make_psharded_step(eng, mesh, SimConfig(**cfg_kw),
+                               SimConfig(**cfg_kw).omega0_sq())
+    lists, hops = shard_pair_lists(eng, fs, mesh.ndev)
+    ppad = eng.pad_array(x, fs, fill=FAR)
+    acc_pad = ps.gather_padded(ps.force_padded(ps.shard_padded(ppad), fs,
+                                               lists, hops))
+    loc = ps.localize(lists, hops, dev)
+    return {"m2l_fly": eng.m2l_fly,
+            "local_fold_rows": tuple(loc.m2l_h2.shape),
+            "pshard_force": _np(eng.unpad_array(acc_pad, fs)),
+            "shard_force": _np(make_sharded_force(eng, mesh)(x, fs)),
+            "single_force": _np(eng.unpad_array(eng.force_padded(ppad, fs),
+                                                fs))}
 
 
 def sharded_forces(mesh, cfg_kw, pos, vel, states, L=None):
@@ -194,13 +221,16 @@ def mesh_simulator(mesh, runs, pos, vel):
 def parallel_scenarios(mesh, spec):
     """Everything tests/test_torch_parallel.py asks of one group of ranks,
     in one spawn: the collectives, and where `spec` holds them the sharded
-    forces (per named case: arguments of :func:`sharded_forces`) and the
-    sharded direct force (arguments of :func:`sharded_direct`)."""
+    forces (per named case: arguments of :func:`sharded_forces`), the
+    sharded direct force (arguments of :func:`sharded_direct`) and the
+    stored-fold forces (arguments of :func:`stored_forces`)."""
     out = {"collectives": collectives(mesh, spec["seed"])}
     for name, args in spec.get("forces", {}).items():
         out[name] = sharded_forces(mesh, *args)
     if "direct" in spec:
         out["direct"] = sharded_direct(mesh, *spec["direct"])
+    if "stored" in spec:
+        out["stored"] = stored_forces(mesh, *spec["stored"])
     return out
 
 
