@@ -184,14 +184,25 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      finite, a capture, P2P launches == 50 force evaluations, stored
      against fly within 1e-5 of max|pos|; fmm2_kd at N=100k, p=4, r=2
      with frozen geometry (CO_GEOM_REFRESH=0's config), 12 steps in each
-     mode: dim-2 P2P launches == 13, stored against fly within 1e-5.
+     mode: dim-2 P2P launches == 13, stored against fly within 1e-5;
+ 20. far-field studies: the four study twins of scripts/ through their
+     functions on the card at N=100k, p=6, r=1.67, 2 repetitions:
+     m2l_window_stats (its lines), m2l_micro and m2l_micro2 (each engine
+     in stored mode, CO_M2L_FLY=0 set only around its construction; every
+     float32 variant within 1e-5 of max|ref| of its identity, or the
+     study raises) and l2p_micro at p=6 (G=8192, C=128: the batched
+     product and l2p_field_blocked within 1e-5 of the einsum); every row
+     finite and timed by CUDA events and by its kernels (a trace that
+     lost its kernels makes its study raise), CO_M2L_FLY as it was; one
+     JSON line with the rows and the card.  The studies run in a process
+     of their own (one that traced the earlier phases lost kernel events
+     from later traces; the cause is not known).
 
 Any failure raises: the script then exits non-zero without its last line.
 Usage, from the repository root:  python3 chip_smoke.py
 """
 
 import concurrent.futures
-import contextlib
 import json
 import os
 import subprocess
@@ -221,6 +232,7 @@ KD2_TOL = 2e-3          # fmm2_kd vs Kahan (test_fmm_kd_variants.py:31)
 # fmm2_kd's config at ladder row 2 (scripts/ladder.py), on the 2D beam
 KD2_CFG = dict(dim=2, omega0=(1.095, 1.0), fmm_order=4, tree_radius=2.0)
 N_KD2 = 100_000
+N_FAR = 100_000         # the far-field studies of phase 20
 F64_P2P_TOL = 1e-12     # double P2P kernel vs its plain float64 version
 # eager stages' sum over the padded force they make: of the kernels' own
 # times, and of the CUDA-event times (which hold the host's launch gaps,
@@ -1792,20 +1804,6 @@ def _phase_ladder_drift(dev, smi, torch):
     return launches
 
 
-@contextlib.contextmanager
-def _m2l_env(fly):
-    """Engines made inside read ``CO_M2L_FLY`` = `fly`."""
-    old = os.environ.get("CO_M2L_FLY")
-    os.environ["CO_M2L_FLY"] = fly
-    try:
-        yield
-    finally:
-        if old is None:
-            del os.environ["CO_M2L_FLY"]
-        else:
-            os.environ["CO_M2L_FLY"] = old
-
-
 def _phase_stored_fold(dev, smi, torch):
     """Phase 19: the stored-fold M2L (CO_M2L_FLY=0) against fly mode.
     Returns the P2P launches of its paths by dim."""
@@ -1816,6 +1814,7 @@ def _phase_stored_fold(dev, smi, torch):
     from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
     from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR, KdFmmEngine
     from coulomb_oscillators_tpu_torch.ops.reductions import mean_rel_err
+    from coulomb_oscillators_tpu_torch.scripts._common import m2l_env
     from coulomb_oscillators_tpu_torch.scripts.stale_margin_probe import (
         cadence_config)
 
@@ -1826,10 +1825,10 @@ def _phase_stored_fold(dev, smi, torch):
     pos = torch.from_numpy(pos_h).to(dev)
     forces, rows = {}, {}
     p2p_cuda.launches = 0
-    for mode, fly in (("fly", "1"), ("stored", "0")):
-        with _m2l_env(fly):
+    for mode, fly in (("fly", True), ("stored", False)):
+        with m2l_env(fly):
             eng = KdFmmEngine(cfg, N)
-        _require(eng.m2l_fly is (mode == "fly"), f"CO_M2L_FLY={fly} read")
+        _require(eng.m2l_fly is fly, f"CO_M2L_FLY read ({mode})")
         fs = eng.build(pos)
         Km, S_H = fs.m2l_tgt.shape[0], eng.tables.S_H
         want = (Km, S_H) if mode == "stored" else (1, 1)
@@ -1876,8 +1875,8 @@ def _phase_stored_fold(dev, smi, torch):
     # rebuild thread in stored mode) is adopted
     ccfg = cadence_config(6, 1.67, 16, 2, 2)
     win = {}
-    for mode, fly in (("fly", "1"), ("stored", "0")):
-        with _m2l_env(fly):
+    for mode, fly in (("fly", True), ("stored", False)):
+        with m2l_env(fly):
             win[mode] = _sim_windows(torch, True, ccfg, N, "fmm3_kd", pos_h,
                                      vel_h, [16, 16, 16, 1], dev)
         r = win[mode]
@@ -1902,8 +1901,8 @@ def _phase_stored_fold(dev, smi, torch):
     u2 = tuple(w * x for w, x in zip(cfg2.omega0, X_STD[:2]))
     p2, v2 = ID.init_gaussian(N_KD2, X_STD[:2], u2, dim=2, seed=SEED)
     w2 = {}
-    for mode, fly in (("fly", "1"), ("stored", "0")):
-        with _m2l_env(fly):
+    for mode, fly in (("fly", True), ("stored", False)):
+        with m2l_env(fly):
             w2[mode] = _sim_windows(torch, True, cfg2, N_KD2, "fmm2_kd", p2,
                                     v2, [12], dev)
         _require(w2[mode]["p2p_launches_2d"] == 13, f"fmm2_kd {mode}: "
@@ -1919,6 +1918,82 @@ def _phase_stored_fold(dev, smi, torch):
     return {3: {"forces": force_launches,
                 "window": {m: win[m]["p2p_launches"] for m in win}},
             2: {m: w2[m]["p2p_launches_2d"] for m in w2}}
+
+
+def _far_studies_child(path):
+    """The four far-field study twins of scripts/ through their functions
+    on cuda:0; their results, the seconds of each and whether CO_M2L_FLY
+    is as it was go to the JSON file `path`.  Each study raises where a
+    variant misses its identity or a trace lost its kernels."""
+    import torch
+    from coulomb_oscillators_tpu_torch.scripts import l2p_micro as LM
+    from coulomb_oscillators_tpu_torch.scripts import m2l_micro as MM
+    from coulomb_oscillators_tpu_torch.scripts import m2l_micro2 as MM2
+    from coulomb_oscillators_tpu_torch.scripts import m2l_window_stats as WS
+
+    dev = torch.device("cuda", 0)
+    knob = os.environ.get("CO_M2L_FLY")
+    out = {}
+    for name, run in (
+            ("m2l_window_stats", lambda: WS.stats(N_FAR, 6, 1.67, dev)),
+            ("m2l_micro", lambda: MM.study(N_FAR, 6, 1.67, dev, reps=2)),
+            ("m2l_micro2", lambda: MM2.study(N_FAR, 6, 1.67, 2048, dev,
+                                             reps=2)),
+            ("l2p_micro", lambda: LM.study(6, dev, reps=2))):
+        t = time.perf_counter()
+        out[name] = dict(run(), seconds=time.perf_counter() - t)
+    out["knob_kept"] = os.environ.get("CO_M2L_FLY") == knob
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def _phase_far_studies(smi):
+    """Phase 20: the far-field study twins, in a process of their own: a
+    process that has traced the earlier phases loses kernel events from
+    its later traces (zeros and partial sums in the studies' kernel
+    times), and the studies time every variant by its kernels."""
+    from coulomb_oscillators_tpu_torch.scripts.m2l_micro import TOL
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "far_studies.json")
+        res = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke._far_studies_child({path!r})"], cwd=here,
+            capture_output=True, text=True, timeout=600)
+        print(res.stdout, end="", flush=True)
+        _require(res.returncode == 0, f"far-field studies exited "
+                 f"{res.returncode}: {res.stderr[-3000:]}")
+        with open(path) as f:
+            out = json.load(f)
+    print(json.dumps({"far_studies": out, "card": smi}), flush=True)
+    _require(out.pop("knob_kept"), "CO_M2L_FLY as it was after the studies")
+    ws = out["m2l_window_stats"]
+    _require(ws["config"]["K"] > 0 and len(ws["lines"]) == 13,
+             f"window stats: K {ws['config']['K']} > 0, 13 lines")
+    names = {"m2l_micro": ["full", "gather", "gather64", "gather128",
+                           "gathersrt", "compute", "segsum", "grouped8",
+                           "grouped16", "grouped32"],
+             "m2l_micro2": ["full", "winchunk", "winchunk_bf", "srcbcast8",
+                            "srcbcast16"],
+             "l2p_micro": ["monomials", "expand+W", "final einsum",
+                           "final batchmatmul", "l2p_field_blocked",
+                           "l2l (G nodes)"]}
+    for study, want in names.items():
+        rows = out[study]["rows"]
+        _require([r["name"] for r in rows] == want,
+                 f"{study}: rows {[r['name'] for r in rows]} == {want}")
+        for r in rows:
+            # a trace that lost its kernels made the study raise
+            _require(r.get("finite", True) and r["event_ms"] > 0
+                     and r["kernel_ms"] > 0,
+                     f"{study} {r['name']}: finite, timed on the card "
+                     f"({r.get('event_ms')}, {r.get('kernel_ms')} ms)")
+    held = [r["rel_dev"] for s in ("m2l_micro", "m2l_micro2")
+            for r in out[s]["rows"]
+            if "rel_dev" in r and r.get("dtype") != "bfloat16"]
+    _require(len(held) == 12 and max(held) <= TOL,
+             f"{len(held)} float32 variants == 12, each <= {TOL}")
 
 
 def main() -> int:
@@ -2321,6 +2396,11 @@ def main() -> int:
     t0 = time.perf_counter()
     sf_launches = _phase_stored_fold(dev, smi, torch)
     _phase("stored fold", t0)
+
+    # ---- 20. the far-field studies --------------------------------------
+    t0 = time.perf_counter()
+    _phase_far_studies(smi)
+    _phase("far-field studies", t0)
 
     row, drow = p2p_rows[0], direct_rows[3, N_CLI]
     # no single PyTorch call computes a masked leaf-pair sum or an

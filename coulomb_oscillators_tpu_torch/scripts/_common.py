@@ -1,9 +1,12 @@
 """What the measurement scripts share: the device rule, the card's
-identity, the production beam and the seeded oracle targets."""
+identity, the production beam, the seeded oracle targets, the knobs an
+engine or Simulator reads when it is made, and the timing of a study's
+variants."""
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 
 import numpy as np
@@ -72,6 +75,90 @@ def graphs_env(on):
             os.environ.pop("CO_CUDA_GRAPHS", None)
         else:
             os.environ["CO_CUDA_GRAPHS"] = saved
+
+
+@contextlib.contextmanager
+def m2l_env(fly: bool):
+    """``CO_M2L_FLY`` for the engines built inside: fly mode (True) or the
+    stored fold (False).  The engine reads the knob when it is made, so
+    the mode is set only around the construction and restored after it."""
+    saved = os.environ.get("CO_M2L_FLY")
+    try:
+        os.environ["CO_M2L_FLY"] = "1" if fly else "0"
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("CO_M2L_FLY", None)
+        else:
+            os.environ["CO_M2L_FLY"] = saved
+
+
+def host_rss() -> int:
+    """This process's resident host memory in bytes (0 where /proc is
+    absent)."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except OSError:
+        return 0
+
+
+def emit(out: dict, path=None, omit=()) -> None:
+    """Write a study's result to `path` (when given), then print it, less
+    the keys in `omit`, as the one ``@@`` JSON line."""
+    if path:
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"wrote {path}", flush=True)
+    print("@@ " + json.dumps({k: v for k, v in out.items() if k not in omit}),
+          flush=True)
+
+
+def time_variants(fns, device, reps: int) -> dict:
+    """Times of each named nullary variant: on the card the median of
+    `reps` CUDA-event times (``event_ms``), the summed kernel time of one
+    traced call (``kernel_ms``) and the device memory one call allocates
+    above what was held before it (``extra_bytes``, with the absolute
+    ``peak_bytes``); on the CPU the host clock's median (``host_ms``),
+    which is no device number."""
+    from coulomb_oscillators_tpu_torch.utils import profiling as prof
+    if torch.device(device).type != "cuda":
+        return {k: {"host_ms": v}
+                for k, v in prof.stage_times(fns, reps, device).items()}
+    event = prof.stage_times(fns, reps, device)
+    kernel = prof.stage_device_times(fns, device)
+    out = {}
+    for k, fn in fns.items():
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        fn()
+        torch.cuda.synchronize(device)
+        peak = torch.cuda.max_memory_allocated(device)
+        out[k] = {"event_ms": event[k], "kernel_ms": kernel[k],
+                  "peak_bytes": peak, "extra_bytes": peak - base}
+    return out
+
+
+# a traced call whose kernels sum to less than this share of its event time
+# (where that is at least LOST_EVENT_MS; shorter calls may be launch-bound)
+# lost kernel events from its trace
+LOST_SHARE, LOST_EVENT_MS = 0.5, 1.0
+
+
+def check_traces(times: dict) -> None:
+    """Raise if a card row of :func:`time_variants` lost kernel events from
+    its trace: kernels summing to nothing, or to less than LOST_SHARE of
+    its event time where that is LOST_EVENT_MS or more.  (Seen on the card
+    in a process that had traced many earlier runs; the cause is not
+    known.)  Host rows pass."""
+    lost = [f"{k}: {v['kernel_ms']:.3f} kernel ms, {v['event_ms']:.3f} "
+            f"event ms" for k, v in times.items() if "kernel_ms" in v
+            and (v["kernel_ms"] <= 0 or (
+                v["event_ms"] >= LOST_EVENT_MS
+                and v["kernel_ms"] < LOST_SHARE * v["event_ms"]))]
+    if lost:
+        raise RuntimeError(f"traces lost their kernels: {lost}")
 
 
 def graph_info(sim) -> dict:

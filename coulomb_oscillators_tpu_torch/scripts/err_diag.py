@@ -152,11 +152,7 @@ def main(argv=None) -> int:
     device = C.pick_device(args.device)
     out = diag(args.n, args.p, args.r, device)
     out["device"] = C.device_info(device)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(out, f, indent=1)
-        print(f"wrote {args.out}", flush=True)
-    print("@@ " + json.dumps(out), flush=True)
+    C.emit(out, args.out)
     return 0
 
 

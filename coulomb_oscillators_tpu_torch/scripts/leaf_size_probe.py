@@ -25,7 +25,6 @@ beside the numbers.
 from __future__ import annotations
 
 import argparse
-import json
 import sys
 import time
 
@@ -104,11 +103,7 @@ def main(argv=None) -> int:
     rows = probe(args.n, args.p, args.r, LEVELS)
     out = {"config": {"n": args.n, "p": args.p, "r": args.r},
            "device": C.device_info(device), "rows": rows}
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(out, f, indent=1)
-        print(f"wrote {args.out}", flush=True)
-    print("@@ " + json.dumps(out), flush=True)
+    C.emit(out, args.out)
     return 0
 
 

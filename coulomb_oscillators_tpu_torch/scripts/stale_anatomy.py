@@ -140,12 +140,7 @@ def main(argv=None) -> int:
                   int(os.environ.get("CO_RESORT", "2")),
                   int(os.environ.get("CO_PIPE", "2")), device)
     out["device"] = C.device_info(device)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(out, f, indent=1)
-        print(f"wrote {args.out}", flush=True)
-    print("@@ " + json.dumps({k: v for k, v in out.items()
-                              if k != "ladder"}), flush=True)
+    C.emit(out, args.out, omit=("ladder",))
     return 0
 
 

@@ -1,5 +1,6 @@
 """Port vs reference: the probe twins ``scripts/{stale_anatomy,err_diag,
-leaf_size_probe,sortmode_probe}.py`` of the port.
+leaf_size_probe,sortmode_probe}.py`` of the port (and, in the refusal
+test, the far-field study twins of ``tests/test_torch_far_studies.py``).
 
 Each probe runs on the CPU at a small size on the same numpy beam as the
 reference side, which the test builds through the JAX package's API
@@ -32,7 +33,11 @@ from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
 from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR, KdFmmEngine
 from coulomb_oscillators_tpu_torch.scripts import _common as C
 from coulomb_oscillators_tpu_torch.scripts import err_diag as ED
+from coulomb_oscillators_tpu_torch.scripts import l2p_micro as LM
 from coulomb_oscillators_tpu_torch.scripts import leaf_size_probe as LP
+from coulomb_oscillators_tpu_torch.scripts import m2l_micro as MM
+from coulomb_oscillators_tpu_torch.scripts import m2l_micro2 as MM2
+from coulomb_oscillators_tpu_torch.scripts import m2l_window_stats as WS
 from coulomb_oscillators_tpu_torch.scripts import sortmode_probe as SM
 from coulomb_oscillators_tpu_torch.scripts import stale_anatomy as SA
 
@@ -290,9 +295,11 @@ def test_sortmode_probe_matches_reference(beam):
         assert set(row["build_times"]) == set(eng.last_build_times)
 
 
-@pytest.mark.parametrize("main", [SA.main, ED.main, LP.main, SM.main],
+@pytest.mark.parametrize("main", [SA.main, ED.main, LP.main, SM.main,
+                                  WS.main, MM.main, MM2.main, LM.main],
                          ids=["stale_anatomy", "err_diag", "leaf_size_probe",
-                              "sortmode_probe"])
+                              "sortmode_probe", "m2l_window_stats",
+                              "m2l_micro", "m2l_micro2", "l2p_micro"])
 def test_probes_refuse_without_a_card(monkeypatch, capsys, main):
     """Without a card and without --device cpu every probe raises and
     prints no result."""

@@ -186,10 +186,12 @@ def _clean_env():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import os, sys, pkgutil, importlib\n"
         "import coulomb_oscillators_tpu_torch as P\n"
+        "os.environ.pop('CO_M2L_FLY', None)\n"
         "for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'CO_M2L_FLY' not in os.environ, 'an import set CO_M2L_FLY'\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'coulomb_oscillators_tpu' or "
         "k.startswith('coulomb_oscillators_tpu.'))\n"
@@ -201,7 +203,8 @@ def test_port_imports_no_jax():
         "'parallel.fmm_pshard', 'scripts.graft_entry', "
         "'scripts.pshard_scaling', 'scripts.stale_anatomy', "
         "'scripts.err_diag', 'scripts.leaf_size_probe', "
-        "'scripts.sortmode_probe']\n"
+        "'scripts.sortmode_probe', 'scripts.m2l_window_stats', "
+        "'scripts.m2l_micro', 'scripts.m2l_micro2', 'scripts.l2p_micro']\n"
         "missing = [m for m in new if P.__name__ + '.' + m not in "
         "sys.modules]\n"
         "assert not missing, missing\n"
