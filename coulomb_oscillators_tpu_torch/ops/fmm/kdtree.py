@@ -44,7 +44,6 @@ import functools
 import math
 import os
 import threading
-import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -55,6 +54,7 @@ from coulomb_oscillators_tpu_torch.config import SimConfig, round_to_dtype
 from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
 from coulomb_oscillators_tpu_torch.ops.multipole import operators as mop
 from coulomb_oscillators_tpu_torch.ops.multipole.tables import build_tables
+from coulomb_oscillators_tpu_torch.utils import profiling as P
 
 FAR = p2p_cuda.FAR
 
@@ -527,16 +527,14 @@ class KdFmmEngine:
         traversal, and perm/inv never leave the device.  Returns the
         ingredients for :meth:`adopt`."""
         bt = {}
-        t0 = time.perf_counter()
-        fn = (_build_device if self.sort_mode == "kd_device"
-              else _build_device_morton)
-        perm, center, lam, lb, rb = fn(pos.detach(), self.n, self.L,
-                                       self.dim)
-        c_h, lb_h, rb_h = (x.cpu().numpy() for x in (center, lb, rb))
-        bt["device_build"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        m2l, p2p = self._traverse(c_h, lb_h, rb_h)
-        bt["traverse"] = time.perf_counter() - t0
+        with P.span("kd.device_build", bt):
+            fn = (_build_device if self.sort_mode == "kd_device"
+                  else _build_device_morton)
+            perm, center, lam, lb, rb = fn(pos.detach(), self.n, self.L,
+                                           self.dim)
+            c_h, lb_h, rb_h = (x.cpu().numpy() for x in (center, lb, rb))
+        with P.span("kd.traverse", bt):
+            m2l, p2p = self._traverse(c_h, lb_h, rb_h)
         inv = torch.empty_like(perm)
         inv[perm.long()] = torch.arange(self.n, dtype=perm.dtype,
                                         device=perm.device)
@@ -546,9 +544,8 @@ class KdFmmEngine:
         """The whole host side of a rebuild from original-order positions;
         returns the ingredients for :meth:`adopt`."""
         bt = {}
-        t0 = time.perf_counter()
-        pos_h = pos.detach().to("cpu", torch.float32).numpy()
-        bt["fetch"] = time.perf_counter() - t0
+        with P.span("kd.fetch", bt):
+            pos_h = pos.detach().to("cpu", torch.float32).numpy()
         return self._build_host_from(pos_h, bt)
 
     def build_host_padded(self, ppad_h: np.ndarray,
@@ -556,25 +553,24 @@ class KdFmmEngine:
         """:meth:`build_host` fed from a host copy of the PADDED positions
         and the inverse permutation they are padded under."""
         bt = {}
-        t0 = time.perf_counter()
-        flat = np.asarray(ppad_h, dtype=np.float32).reshape(-1, self.dim)
-        # particle o sits at sorted slot inv[o], padded slot unpad[inv[o]]
-        pos_h = flat[self.st.unpad_gather[np.asarray(inv_perm_old)]]
-        bt["unpad_host"] = time.perf_counter() - t0
+        with P.span("kd.unpad_host", bt):
+            flat = np.asarray(ppad_h, dtype=np.float32).reshape(-1,
+                                                                self.dim)
+            # particle o sits at sorted slot inv[o], padded slot
+            # unpad[inv[o]]
+            pos_h = flat[self.st.unpad_gather[np.asarray(inv_perm_old)]]
         return self._build_host_from(pos_h, bt)
 
     def _build_host_from(self, pos_h: np.ndarray, bt: dict) -> tuple:
-        t0 = time.perf_counter()
-        perm = native.kdtree_build(pos_h, self.L)
-        inv = np.empty_like(perm)
-        inv[perm] = np.arange(self.n, dtype=perm.dtype)
-        bt["kd"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        c_h, lb_h, rb_h, lam_h = native.node_geometry(pos_h[perm], self.L)
-        bt["geom"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        m2l, p2p = self._traverse(c_h, lb_h, rb_h)
-        bt["traverse"] = time.perf_counter() - t0
+        with P.span("kd.sort", bt, "kd"):
+            perm = native.kdtree_build(pos_h, self.L)
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(self.n, dtype=perm.dtype)
+        with P.span("kd.geom", bt):
+            c_h, lb_h, rb_h, lam_h = native.node_geometry(pos_h[perm],
+                                                          self.L)
+        with P.span("kd.traverse", bt):
+            m2l, p2p = self._traverse(c_h, lb_h, rb_h)
         return (perm, inv, c_h, lam_h, m2l, p2p, bt)
 
     def adopt(self, built: tuple, device) -> FmmState:
@@ -663,91 +659,88 @@ class KdFmmEngine:
         """Pad pair lists to caps, build the grouped M2L layout and the P2P
         CSR, upload, assemble FmmState (the twin's logic, with the CSR
         always built)."""
-        t0 = time.perf_counter()
-        self.last_counts = {"m2l": int(m2l.shape[0]),
-                            "p2p": int(p2p.shape[0])}
-        Mheap = _heap_off(self.L + 1)
-        g = self.m2l_group
-        # grouped layout: each target's (sorted, contiguous) entry run is
-        # padded to a multiple of g; caps["m2l"] tracks the grouped length
-        tgt = m2l[:, 0].astype(np.int64)
-        deg = np.bincount(tgt, minlength=Mheap)
-        pdeg = -(-deg // g) * g
-        off = np.zeros(Mheap + 1, np.int64)
-        np.cumsum(pdeg, out=off[1:])
-        rp = np.zeros(Mheap + 1, np.int64)
-        np.cumsum(deg, out=rp[1:])
-        posn = np.arange(m2l.shape[0], dtype=np.int64)
-        posn += np.repeat(off[:-1] - rp[:-1], deg)
-        k2 = int(off[-1])
-        # caps: quantized, headroom, geometric overflow growth (the twin's
-        # policy; equal caps keep the state equal to the twin's)
-        for name, klen, q, hr in (("m2l", k2, M2L_CAP_QUANTUM, 1.08),
-                                  ("p2p", p2p.shape[0], 8192, 1.25)):
-            if klen > self.caps[name]:
-                grown = -(-(self.caps[name] * 5 // 4) // q) * q
-                self.caps[name] = max(_round_cap(klen, q, hr),
-                                      grown if self.caps[name] else 0)
-        if p2p.shape[0] > self.near_cap:
-            self.near_cap = min(self.caps["p2p"],
-                                -(-int(p2p.shape[0] * 1.25) // 256) * 256)
-        G = self.G_sub
-        cap = self.caps["m2l"]
-        m2l_t = np.full(cap, Mheap, dtype=np.int32)
-        m2l_s = np.zeros(cap, dtype=np.int32)
-        m2l_v = np.zeros(cap, dtype=bool)
-        m2l_t[posn] = m2l[:, 0]
-        m2l_s[posn] = m2l[:, 1]
-        m2l_v[posn] = True
-        # group target = min over the group (pad slots carry the Mheap
-        # sentinel; all-pad tail groups stay at the sentinel); ungrouped
-        # lists (g = 1) carry the reference's one-element placeholder
-        m2l_gt = (m2l_t.reshape(-1, g).min(axis=1) if g > 1
-                  else np.zeros(1, dtype=np.int32))
-        p2p_t, p2p_s, p2p_v = _pad_pairs(p2p, self.caps["p2p"], G)
-        row_ptr = np.searchsorted(p2p[:, 0], np.arange(G + 1),
-                                  side="left").astype(np.int32)
-        degrees = np.diff(row_ptr)
-        dmax = int(degrees.max()) if degrees.size else 1
-        # first sizing even for an empty list (coll=False): the CSR and
-        # col2d are built on every device
-        if "dmax" not in self.caps or dmax > self.caps["dmax"]:
-            grown = self.caps.get("dmax", 0) * 5 // 4
-            dmax = max(128, -(-max(int(dmax * 1.25), grown) // 128) * 128)
-            self.caps["dmax"] = dmax
-        dmax = self.caps["dmax"]
-        col2d = _build_col2d(p2p, row_ptr, G, self.G_blk, dmax)
-        bt["lists"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        center_d = _upload(center, device).to(self.dtype)
-        out = FmmState(
-            perm=_upload(perm, device), inv_perm=_upload(inv_perm, device),
-            center=center_d, lam=_upload(lam, device).to(self.dtype),
-            p2p_tgt=_upload(p2p_t, device), p2p_src=_upload(p2p_s, device),
-            p2p_valid=_upload(p2p_v, device),
-            m2l_tgt=_upload(m2l_t, device), m2l_src=_upload(m2l_s, device),
-            m2l_valid=_upload(m2l_v, device),
-            # the reference's placeholders: fly mode folds in the loop
-            m2l_h2=center_d.new_zeros(1, 1), m2l_w=center_d.new_zeros(1),
-            m2l_logc=center_d.new_zeros(1),
-            p2p_row_ptr=_upload(row_ptr, device),
-            p2p_col2d=_upload(col2d, device),
-            m2l_gtgt=_upload(m2l_gt, device))
-        bt["upload"] = time.perf_counter() - t0
+        with P.span("kd.lists", bt):
+            self.last_counts = {"m2l": int(m2l.shape[0]),
+                                "p2p": int(p2p.shape[0])}
+            Mheap = _heap_off(self.L + 1)
+            g = self.m2l_group
+            # grouped layout: each target's (sorted, contiguous) entry run is
+            # padded to a multiple of g; caps["m2l"] tracks the grouped length
+            tgt = m2l[:, 0].astype(np.int64)
+            deg = np.bincount(tgt, minlength=Mheap)
+            pdeg = -(-deg // g) * g
+            off = np.zeros(Mheap + 1, np.int64)
+            np.cumsum(pdeg, out=off[1:])
+            rp = np.zeros(Mheap + 1, np.int64)
+            np.cumsum(deg, out=rp[1:])
+            posn = np.arange(m2l.shape[0], dtype=np.int64)
+            posn += np.repeat(off[:-1] - rp[:-1], deg)
+            k2 = int(off[-1])
+            # caps: quantized, headroom, geometric overflow growth (the twin's
+            # policy; equal caps keep the state equal to the twin's)
+            for name, klen, q, hr in (("m2l", k2, M2L_CAP_QUANTUM, 1.08),
+                                      ("p2p", p2p.shape[0], 8192, 1.25)):
+                if klen > self.caps[name]:
+                    grown = -(-(self.caps[name] * 5 // 4) // q) * q
+                    self.caps[name] = max(_round_cap(klen, q, hr),
+                                          grown if self.caps[name] else 0)
+            if p2p.shape[0] > self.near_cap:
+                self.near_cap = min(self.caps["p2p"],
+                                    -(-int(p2p.shape[0] * 1.25) // 256) * 256)
+            G = self.G_sub
+            cap = self.caps["m2l"]
+            m2l_t = np.full(cap, Mheap, dtype=np.int32)
+            m2l_s = np.zeros(cap, dtype=np.int32)
+            m2l_v = np.zeros(cap, dtype=bool)
+            m2l_t[posn] = m2l[:, 0]
+            m2l_s[posn] = m2l[:, 1]
+            m2l_v[posn] = True
+            # group target = min over the group (pad slots carry the Mheap
+            # sentinel; all-pad tail groups stay at the sentinel); ungrouped
+            # lists (g = 1) carry the reference's one-element placeholder
+            m2l_gt = (m2l_t.reshape(-1, g).min(axis=1) if g > 1
+                      else np.zeros(1, dtype=np.int32))
+            p2p_t, p2p_s, p2p_v = _pad_pairs(p2p, self.caps["p2p"], G)
+            row_ptr = np.searchsorted(p2p[:, 0], np.arange(G + 1),
+                                      side="left").astype(np.int32)
+            degrees = np.diff(row_ptr)
+            dmax = int(degrees.max()) if degrees.size else 1
+            # first sizing even for an empty list (coll=False): the CSR and
+            # col2d are built on every device
+            if "dmax" not in self.caps or dmax > self.caps["dmax"]:
+                grown = self.caps.get("dmax", 0) * 5 // 4
+                dmax = max(128, -(-max(int(dmax * 1.25), grown) // 128) * 128)
+                self.caps["dmax"] = dmax
+            dmax = self.caps["dmax"]
+            col2d = _build_col2d(p2p, row_ptr, G, self.G_blk, dmax)
+        with P.span("kd.upload", bt):
+            center_d = _upload(center, device).to(self.dtype)
+            out = FmmState(
+                perm=_upload(perm, device), inv_perm=_upload(inv_perm, device),
+                center=center_d, lam=_upload(lam, device).to(self.dtype),
+                p2p_tgt=_upload(p2p_t, device), p2p_src=_upload(p2p_s, device),
+                p2p_valid=_upload(p2p_v, device),
+                m2l_tgt=_upload(m2l_t, device), m2l_src=_upload(m2l_s, device),
+                m2l_valid=_upload(m2l_v, device),
+                # the reference's placeholders: fly mode folds in the loop
+                m2l_h2=center_d.new_zeros(1, 1), m2l_w=center_d.new_zeros(1),
+                m2l_logc=center_d.new_zeros(1),
+                p2p_row_ptr=_upload(row_ptr, device),
+                p2p_col2d=_upload(col2d, device),
+                m2l_gtgt=_upload(m2l_gt, device))
         if not self.m2l_fly:
-            t0 = time.perf_counter()
-            h2, w, logc = self._m2l_geo(out.center, out.lam, out.m2l_tgt,
-                                        out.m2l_src, out.m2l_valid)
-            out = out._replace(m2l_h2=h2, m2l_w=w, m2l_logc=logc)
-            if center_d.device.type == "cuda":
-                # the fold is queued on the calling thread's stream (the
-                # rebuild thread's, for a background rebuild); wait for it
-                # here, so that no consumer on any stream or thread adopts
-                # a fold that has not finished
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(center_d.device))
-                done.synchronize()
-            bt["m2l_fold"] = time.perf_counter() - t0
+            with P.span("kd.m2l_fold", bt):
+                h2, w, logc = self._m2l_geo(out.center, out.lam, out.m2l_tgt,
+                                            out.m2l_src, out.m2l_valid)
+                out = out._replace(m2l_h2=h2, m2l_w=w, m2l_logc=logc)
+                if center_d.device.type == "cuda":
+                    # the fold is queued on the calling thread's stream (the
+                    # rebuild thread's, for a background rebuild); wait for it
+                    # here, so that no consumer on any stream or thread adopts
+                    # a fold that has not finished
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(center_d.device))
+                    done.synchronize()
         self.last_build_times = bt
         return out
 
@@ -758,35 +751,33 @@ class KdFmmEngine:
         re-traversal on the host, lists re-uploaded.  Pass perm/inv_perm
         when ppad was padded under a new permutation."""
         bt = {}
-        t0 = time.perf_counter()
-        h = torch.stack(self._leaf_stats(ppad)).cpu().numpy()  # [3, G, dim]
-        bt["geom_dev"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        L, dim = self.L, self.dim
-        G = 1 << L
-        M = (1 << (L + 1)) - 1
-        mn = np.empty((M, dim), h.dtype)
-        mx = np.empty((M, dim), h.dtype)
-        sm = np.empty((M, dim), np.float64)
-        mn[G - 1:] = h[0]
-        mx[G - 1:] = h[1]
-        sm[G - 1:] = h[2]
-        for l in range(L - 1, -1, -1):
-            off, offc, m = (1 << l) - 1, (1 << (l + 1)) - 1, 1 << l
-            mn[off:off + m] = np.minimum(mn[offc:offc + 2 * m:2],
-                                         mn[offc + 1:offc + 2 * m:2])
-            mx[off:off + m] = np.maximum(mx[offc:offc + 2 * m:2],
-                                         mx[offc + 1:offc + 2 * m:2])
-            sm[off:off + m] = (sm[offc:offc + 2 * m:2]
-                               + sm[offc + 1:offc + 2 * m:2])
-        cnt = self.st.mult.astype(np.float64)[:, None]
-        center = (sm / cnt).astype(h.dtype)
-        lam = np.maximum(0.5 * np.linalg.norm(mx - mn, axis=1),
-                         1e-30).astype(h.dtype)
-        bt["geom_host"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        m2l, p2p = self._traverse(center, mn, mx)
-        bt["traverse"] = time.perf_counter() - t0
+        with P.span("kd.refresh.geom_dev", bt):
+            # [3, G, dim]
+            h = torch.stack(self._leaf_stats(ppad)).cpu().numpy()
+        with P.span("kd.refresh.geom_host", bt):
+            L, dim = self.L, self.dim
+            G = 1 << L
+            M = (1 << (L + 1)) - 1
+            mn = np.empty((M, dim), h.dtype)
+            mx = np.empty((M, dim), h.dtype)
+            sm = np.empty((M, dim), np.float64)
+            mn[G - 1:] = h[0]
+            mx[G - 1:] = h[1]
+            sm[G - 1:] = h[2]
+            for l in range(L - 1, -1, -1):
+                off, offc, m = (1 << l) - 1, (1 << (l + 1)) - 1, 1 << l
+                mn[off:off + m] = np.minimum(mn[offc:offc + 2 * m:2],
+                                             mn[offc + 1:offc + 2 * m:2])
+                mx[off:off + m] = np.maximum(mx[offc:offc + 2 * m:2],
+                                             mx[offc + 1:offc + 2 * m:2])
+                sm[off:off + m] = (sm[offc:offc + 2 * m:2]
+                                   + sm[offc + 1:offc + 2 * m:2])
+            cnt = self.st.mult.astype(np.float64)[:, None]
+            center = (sm / cnt).astype(h.dtype)
+            lam = np.maximum(0.5 * np.linalg.norm(mx - mn, axis=1),
+                             1e-30).astype(h.dtype)
+        with P.span("kd.traverse", bt):
+            m2l, p2p = self._traverse(center, mn, mx)
         return self._lists_to_state(
             fs.perm if perm is None else perm,
             fs.inv_perm if inv_perm is None else inv_perm,
@@ -874,11 +865,20 @@ class KdFmmEngine:
         (twin of ``force_padded_in_jit``).  Pad slots (pos = FAR) receive
         ~0; mask before integrating.  The leaf-frame monomials are
         evaluated once and shared by the P2M and the L2P; the stage methods
-        below run the same operations one stage at a time."""
+        below run the same operations one stage at a time.  The stages
+        are timed as ``fmm.upward``, ``fmm.m2l``, ``fmm.downward`` and
+        ``fmm.p2p`` (``utils/profiling.stage``)."""
+        dev = ppad.device
+        P.stage("fmm.upward", dev)
         V, leafl = self._leaf_frame(ppad, fs)
-        local_heap = self._stage_m2l(self._multipoles_from(V, fs), fs)
+        mpole_heap = self._multipoles_from(V, fs)
+        P.stage("fmm.m2l", dev)
+        local_heap = self._stage_m2l(mpole_heap, fs)
+        P.stage("fmm.downward", dev)
         far = self._l2p(V, leafl, self.l2l_down(local_heap, fs))
+        P.stage("fmm.p2p", dev)
         near = self._stage_p2p(ppad, fs)
+        P.stage(None, dev)
         return (far + near) * self._kappa(ppad.dtype)
 
     def _kappa(self, dtype) -> float:

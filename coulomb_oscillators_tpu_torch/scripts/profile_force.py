@@ -31,11 +31,15 @@ Usage:
   fmm3_traceless, appel at N on the uniform box), `trace` (3 padded force
   calls of --engine, fmm3_kd or fmm2_kd, under the profiler, the
   device-kernel histogram per call),
-  `prodtrace` (one production window of the Simulator of --engine,
-  fmm3_kd or fmm2_kd, under the profiler:
-  device ms/step against wall ms/step, with the steps as CUDA graphs and
-  then eagerly (the record's ``eager``); cadence via env CO_TS / CO_RESORT
-  / CO_PIPE, default 16/2/2; --precision float64 runs it in double).
+  `prodtrace` (production windows of the Simulator of --engine,
+  fmm3_kd or fmm2_kd, two re-sort cycles of them under the profiler:
+  device ms/step against wall ms/step, the force's stages in ms/step
+  (``utils/profiling.stage``), the five longest device-idle gaps with the
+  window-pipeline span the host was in and the rebuild thread's parts
+  that overlap each, with the steps as CUDA graphs and then eagerly (the
+  record's ``eager``); the trace holds the rebuild thread's spans beside
+  the main thread's; cadence via env CO_TS / CO_RESORT / CO_PIPE, default
+  16/2/2; --precision float64 runs it in double).
 """
 
 from __future__ import annotations
@@ -56,6 +60,9 @@ from coulomb_oscillators_tpu_torch.utils import profiling as prof
 KD_STAGES = ("p2m_m2m_ms", "m2l_ms", "l2l_l2p_ms", "p2p_ms")
 OCT_STAGES = ("p2m_ms", "m2m_ms", "m2l_ms", "l2l_ms", "l2p_ms", "p2p_ms")
 APPEL_STAGES = ("monopoles_ms", "c2c_ms", "push_down_ms", "p2p_ms")
+# the kd force's timed stages inside a Simulator step (utils/profiling.py)
+STEP_STAGES = ("fmm.refresh", "fmm.upward", "fmm.m2l", "fmm.downward",
+               "fmm.p2p")
 N_KD2 = 100_000           # fmm2_kd's size (the ladder's config 2)
 
 
@@ -175,7 +182,6 @@ def profile_engine(engine: str, n: int, p: int, r: float, device,
         out["stages_device_ms"] = dev_ms
         out["summary_device"] = prof.stage_summary(dev_ms, dev_ms[whole],
                                                    parts)
-        out["device_busy_share"] = dev_ms[whole] / record[whole]
     if kd:
         out["config"]["C"] = eng.st.C
         out["counts"] = dict(eng.last_counts)
@@ -273,16 +279,20 @@ def trace_force(n: int, p: int, r: float, device, logdir: str,
 def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
                resort: int = 2, pipeline: int = 2, graphs=None,
                engine: str = "fmm3_kd", precision: str = "float32") -> dict:
-    """One production reuse window of the kd `engine`'s Simulator
+    """Production reuse windows of the kd `engine`'s Simulator
     (``fmm3_kd`` on the production beam, or ``fmm2_kd`` on its first two
-    axes with ladder row 2's omega0) under the profiler:
-    device ms/step (the sum of the kernels' durations) against the wall
-    ms/step of the untraced window before it, and the kernels by name per
-    step.  `graphs` True or False runs the steps as CUDA graphs or eagerly
-    (None: as ``CO_CUDA_GRAPHS`` says); the record says which, with the
-    captures, their seconds and the peak of allocated device memory over
-    the two windows.  `precision` "float64" runs the state and the
-    engine in double."""
+    axes with ladder row 2's omega0): one untraced, then two re-sort
+    cycles (2 x `resort` windows) under :func:`profiling.trace`.  The
+    record: device ms/step (the sum of the kernels' durations) of the
+    traced windows against the wall ms/step of the untraced one, the
+    kernels by name per step, the force's stages in ms/step (their
+    sampled times, :data:`STEP_STAGES`), the five longest device-idle
+    gaps (:func:`idle_gaps`) and how the rebuild thread's spans were put
+    on the trace's clock (``span_clock``).  `graphs` True or False runs
+    the steps as CUDA graphs or eagerly (None: as ``CO_CUDA_GRAPHS``
+    says); the record says which, with the captures, their seconds and
+    the peak of allocated device memory over the windows.  `precision`
+    "float64" runs the state and the engine in double."""
     from coulomb_oscillators_tpu_torch.scripts.stale_margin_probe import (
         cadence_config)
     from coulomb_oscillators_tpu_torch.simulate import Simulator
@@ -319,9 +329,11 @@ def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
         sim.advance_padded(ts)
         C.sync(device)
         wall = time.perf_counter() - t0
+        steps = 2 * max(1, resort) * ts
+        prof.reset()
         with prof.trace(logdir):
             t0 = time.perf_counter()
-            sim.advance_padded(ts)
+            sim.advance_padded(steps)
             C.sync(device)
             wall_traced = time.perf_counter() - t0
         margin = np.asarray(sim._fmm.stale_margin_abs).tolist()
@@ -330,22 +342,71 @@ def prod_trace(n: int, p: int, r: float, device, logdir: str, ts: int = 16,
         info = C.graph_info(sim)
         peak = torch.cuda.max_memory_allocated(device) if cuda else None
     finally:
-        sim.close()
+        sim.close()      # reads the step graph's last stage sample
+    totals = prof.totals()
     hist = prof.op_histogram(logdir, top=None)
     tot = sum(hist.values())
     top = dict(list(hist.items())[:40])
+    path = os.path.join(logdir, prof.TRACE_FILE)
+    with open(path) as f:
+        clock = json.load(f)["programSpans"]
     return {"metric": "production_window_trace",
             "config": {"engine": engine, "precision": precision,
                        "n": n, "p": p, "r": r, "ts": ts,
                        "resort_every": resort, "pipeline": pipeline,
                        "stale_margin": margin, "m2l_fly": fly},
             "device": C.device_info(device), "window_wall_s": wall,
+            "traced_steps": steps,
             "wall_ms_per_step": wall / ts * 1e3,
-            "traced_wall_ms_per_step": wall_traced / ts * 1e3,
-            "device_ms_per_step": tot / ts,
-            "device_busy_share": tot / 1e3 / wall,
+            "traced_wall_ms_per_step": wall_traced / steps * 1e3,
+            "device_ms_per_step": tot / steps,
+            "stage_ms_per_step": {k: prof.per_step_ms(totals, k)
+                                  for k in STEP_STAGES},
+            "stage_samples_missed": totals.get(
+                "stage.samples_missed", {}).get("count", 0),
+            "idle_gaps": idle_gaps(path),
+            "span_clock": clock,
             "rebuilds": rebuilds, **info, "peak_bytes": peak,
-            "top_ops_ms_per_step": {k: v / ts for k, v in top.items()}}
+            "top_ops_ms_per_step": {k: v / steps for k, v in top.items()}}
+
+
+def idle_gaps(path: str, top: int = 5) -> list:
+    """The `top` longest gaps between the device's intervals in the
+    Chrome trace at `path` (a :func:`profiling.trace`), longest first,
+    each with the innermost main-thread span at its middle (``host``) and
+    the ms by which each rebuild-thread span overlaps it (``rebuild``)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                 for e in events if e.get("cat") in prof.DEVICE_CATEGORIES)
+    merged = []
+    for a, b in dev:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    gaps = sorted(((merged[i][1], merged[i + 1][0])
+                   for i in range(len(merged) - 1)),
+                  key=lambda g: g[0] - g[1])[:top]
+    host = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+            for e in events if e.get("cat") == "user_annotation"]
+    rebuild = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+               for e in events if e.get("cat") == prof.SPAN_CATEGORY]
+    out = []
+    for a, b in gaps:
+        mid = 0.5 * (a + b)
+        inside = [h for h in host if h[0] <= mid < h[1]]
+        parts = {}
+        for s0, s1, name in rebuild:
+            ov = min(b, s1) - max(a, s0)
+            if ov > 0:
+                parts[name] = parts.get(name, 0.0) + ov / 1e3
+        out.append({"ms": (b - a) / 1e3,
+                    "host": (min(inside, key=lambda h: h[1] - h[0])[2]
+                             if inside else None),
+                    "rebuild": parts})
+    return out
 
 
 def print_histogram(rec: dict, per: str, key: str) -> None:
@@ -408,8 +469,12 @@ def main(argv=None) -> int:
                       f"{rec['capture_s']:.2f} s): wall "
                       f"{rec['wall_ms_per_step']:.2f} ms/step untraced "
                       f"({rec['traced_wall_ms_per_step']:.2f} traced), "
-                      f"device {rec['device_ms_per_step']:.2f} ms/step, "
-                      f"busy {100 * rec['device_busy_share']:.1f}%")
+                      f"device {rec['device_ms_per_step']:.2f} ms/step; "
+                      f"stages (ms/step) {rec['stage_ms_per_step']}, "
+                      f"{rec['stage_samples_missed']} samples missed")
+                print(f"  idle gaps: {rec['idle_gaps']}")
+                print(f"  rebuild spans on the trace's clock: "
+                      f"{rec['span_clock']}")
                 print_histogram(rec, "step", "top_ops_ms_per_step")
         elif mode == "all":
             # ladder 2's fmm2_kd (p=4, r=2), the rest at (p, r)

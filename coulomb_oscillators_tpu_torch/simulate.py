@@ -47,6 +47,17 @@ lists' shapes, its halo hops) can change at an adoption where another's
 does not: so at every window whose tree changed, the ranks combine their
 "my key changed" flags in one all_reduce_sum, and every rank captures
 again or none does.
+
+While a profiler runs, the window pipeline records spans
+(``utils/profiling.py``): ``sim.boundary`` around a boundary that
+rebuilds, and inside it ``sim.boundary.wait`` (each wait on a rebuild
+job), ``.repad``, ``.refresh`` (a synchronous refresh) and ``.submit``
+(the host copies and the next job's submission, which carries the
+recording onto the rebuild thread); ``sim.window`` around each run of
+window steps and ``sim.unpad`` in :meth:`Simulator.current_state`.  The
+kd force's stages are timed as ``fmm.refresh`` (the geometry refresh)
+and, in the engine, ``fmm.upward`` / ``fmm.m2l`` / ``fmm.downward`` /
+``fmm.p2p``.
 """
 
 from __future__ import annotations
@@ -54,7 +65,6 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import os
-import time
 
 import numpy as np
 import torch
@@ -64,6 +74,7 @@ from coulomb_oscillators_tpu_torch.config import SimConfig
 from coulomb_oscillators_tpu_torch.models import integrators as I
 from coulomb_oscillators_tpu_torch.ops.elastic import add_elastic
 from coulomb_oscillators_tpu_torch.state import ParticleState
+from coulomb_oscillators_tpu_torch.utils import profiling as P
 from coulomb_oscillators_tpu_torch.utils.graphs import StepGraph
 
 def auto_stale_margin(vel, config: SimConfig) -> np.ndarray:
@@ -195,6 +206,8 @@ class Simulator:
         geometry from the live positions; lists stay frozen."""
         eng = self._fmm
         if self.config.geom_refresh and self.config.tree_steps > 1:
+            # a stage that the force's first stage ends
+            P.stage("fmm.refresh", ppad.device)
             fstate = eng.geom_refresh(ppad, fstate)
         acc = add_elastic(ppad, eng.force_padded(ppad, fstate),
                           self.omega0_sq)
@@ -210,15 +223,20 @@ class Simulator:
         into the step, so it keys the capture."""
         if k <= 0:
             return state
-        if state.pos.device.type == "cuda" and self.use_graphs:
-            if self.graph is None:
-                self.graph = StepGraph(self._step)
-            static = (() if self._fmm is None or self._use_padded
-                      else (self._fmm.cell_cap,))
-            return self.graph.run(state, frozen, k, static)
-        for _ in range(k):
-            state = self._step(state, frozen)
-        return state
+        with P.span("sim.window"):
+            if state.pos.device.type == "cuda" and self.use_graphs:
+                if self.graph is None:
+                    self.graph = StepGraph(self._step)
+                static = (() if self._fmm is None or self._use_padded
+                          else (self._fmm.cell_cap,))
+                return self.graph.run(state, frozen, k, static)
+            P.run_begins(state.pos.device, k)
+            for _ in range(k):
+                state = self._step(state, frozen)
+            P.run_ends(state.pos.device)
+            if P.recording():
+                P.count("stage.steps", k)
+            return state
 
     def _mesh_window(self, state, fstate, k: int):
         """Mesh mode's `k` steps of the sharded step body against the frozen
@@ -358,16 +376,18 @@ class Simulator:
         up (:meth:`advance_padded` does so before its next step); a probe
         calls it to read the state a new window starts from."""
         if self._steps_since_build >= max(self.config.tree_steps, 1):
-            if self._ps is not None:
-                self._rebuild_psharded()
-            else:
-                self._rebuild_padded()
+            with P.span("sim.boundary"):
+                if self._ps is not None:
+                    self._rebuild_psharded()
+                else:
+                    self._rebuild_padded()
             self._steps_since_build = 0
 
     def current_state(self) -> ParticleState:
         """Unpad and return the current state (resumable via run()); in
         mesh mode the full state, on every rank."""
-        out = self._unpad_state(self._full_padded())
+        with P.span("sim.unpad"):
+            out = self._unpad_state(self._full_padded())
         self._last_out = out
         return out
 
@@ -390,19 +410,21 @@ class Simulator:
             self.rebuilds["sync_full"] += 1
             return
         if self._pending is not None:
-            t0 = time.perf_counter()
-            fstate = self._pending.result()
-            self._waited(time.perf_counter() - t0)
+            fstate = self._wait(self._pending)
             self.rebuilds["adopt_full"] += 1
         else:
-            fstate = eng.refresh(full.pos, self._fstate)
+            with P.span("sim.boundary.refresh"):
+                fstate = eng.refresh(full.pos, self._fstate)
             self.rebuilds["sync_refresh"] += 1
         self._set_fstate(fstate)
-        self._padded = self._pad_state(cur)
-        pos_h = _HostCopy(cur.pos)
-        self._pending = self._executor().submit(
-            lambda: eng.adopt(
-                eng.build_host(torch.from_numpy(pos_h.numpy())), device))
+        with P.span("sim.boundary.repad"):
+            self._padded = self._pad_state(cur)
+        with P.span("sim.boundary.submit"):
+            pos_h = _HostCopy(cur.pos)
+            self._pending = self._executor().submit(P.carry(
+                lambda: eng.adopt(
+                    eng.build_host(torch.from_numpy(pos_h.numpy())),
+                    device)))
 
     def _rebuild_padded(self) -> None:
         """Window-boundary rebuild of the padded state.
@@ -433,17 +455,19 @@ class Simulator:
             # (unpad here, repad at adoption)
             cur = self._unpad_state(self._padded)
             if self._pending is not None:
-                t0 = time.perf_counter()
-                self._fstate = self._pending.result()
-                self._waited(time.perf_counter() - t0)
-                self._padded = self._pad_state(cur)
+                self._fstate = self._wait(self._pending)
+                with P.span("sim.boundary.repad"):
+                    self._padded = self._pad_state(cur)
                 self.rebuilds["adopt_device"] += 1
             else:
-                self._fstate = eng.refresh(self._padded.pos, self._fstate)
+                with P.span("sim.boundary.refresh"):
+                    self._fstate = eng.refresh(self._padded.pos,
+                                               self._fstate)
                 self.rebuilds["sync_refresh"] += 1
-            self._pending = self._executor().submit(
-                lambda p=cur.pos: eng.adopt(eng.build_device_async(p),
-                                            device))
+            with P.span("sim.boundary.submit"):
+                self._pending = self._executor().submit(P.carry(
+                    lambda p=cur.pos: eng.adopt(eng.build_device_async(p),
+                                                device)))
             return
 
         D = max(1, int(self.config.tree_pipeline))
@@ -453,14 +477,13 @@ class Simulator:
 
         if self._pqueue and self._pqueue[0][0] <= i:
             _, kind, fut = self._pqueue.popleft()
-            t0 = time.perf_counter()
-            res = fut.result()
-            self._waited(time.perf_counter() - t0)
+            res = self._wait(fut)
             if kind == "full":
                 fs_new, remap = res
-                self._padded = ParticleState(*eng.repad_triple(
-                    self._padded.pos, self._padded.vel, self._padded.acc,
-                    remap))
+                with P.span("sim.boundary.repad"):
+                    self._padded = ParticleState(*eng.repad_triple(
+                        self._padded.pos, self._padded.vel,
+                        self._padded.acc, remap))
                 self._fstate = fs_new
             else:
                 self._fstate = res
@@ -470,7 +493,8 @@ class Simulator:
                 self._pqueue.popleft()[2].result()
         elif not self._pqueue:
             # pipeline priming: exact bounds on the current permutation
-            self._fstate = eng.refresh(self._padded.pos, self._fstate)
+            with P.span("sim.boundary.refresh"):
+                self._fstate = eng.refresh(self._padded.pos, self._fstate)
             self.rebuilds["sync_refresh"] += 1
 
         fs_cur = self._fstate
@@ -481,16 +505,16 @@ class Simulator:
             # adoption (the previous full job's result; the single worker
             # runs jobs in order)
             prev = self._last_full
-            ppad_h = _HostCopy(ppad)
-            inv_h = _HostCopy(fs_cur.inv_perm)
 
-            def job(ppad_h=ppad_h, inv_h=inv_h, prev=prev, fs_cur=fs_cur):
+            def job(ppad_h, inv_h, prev=prev, fs_cur=fs_cur):
                 fs_new = eng.adopt(eng.build_host_padded(
                     ppad_h.numpy(), inv_h.numpy()), device)
                 fs_old = prev.result()[0] if prev is not None else fs_cur
                 return fs_new, eng.make_repad(fs_old, fs_new)
 
-            fut = self._executor().submit(job)
+            with P.span("sim.boundary.submit"):
+                fut = self._executor().submit(
+                    P.carry(job), _HostCopy(ppad), _HostCopy(fs_cur.inv_perm))
             self._last_full = fut
             self._pqueue.append((i + D, "full", fut))
         elif (i + 1 - D) % K != 0:
@@ -499,8 +523,18 @@ class Simulator:
             def rjob(ppad=ppad, fs_cur=fs_cur):
                 return eng.refresh(ppad, fs_cur)
 
-            self._pqueue.append((i + 1, "refresh",
-                                 self._executor().submit(rjob)))
+            with P.span("sim.boundary.submit"):
+                fut = self._executor().submit(P.carry(rjob))
+            self._pqueue.append((i + 1, "refresh", fut))
+
+    def _wait(self, fut):
+        """A rebuild job's result; the wait is timed (``sim.boundary.wait``
+        and :attr:`rebuild_wait_total`)."""
+        t = {}
+        with P.span("sim.boundary.wait", t, "s"):
+            res = fut.result()
+        self._waited(t["s"])
+        return res
 
     def _waited(self, seconds: float) -> None:
         self.last_rebuild_wait = seconds

@@ -64,10 +64,21 @@ and replays that graph k times.  There is no reference module of this name.
     makes that decision for all ranks at once (:meth:`StepGraph.stale`
     says whether this rank would capture; ``simulate.py`` combines the
     ranks' answers).
+  * **Timed stages.**  The step's ``profiling.stage`` marks become
+    external CUDA timing events, event-record nodes of the graph, in every
+    capture (the warm-up records none); the StepGraph owns them.  They
+    hold the last replay's times only, so while a profiler runs a run
+    leaves its last replay as a pending sample of its `k` steps, and the
+    next run or :meth:`release` hands it to ``profiling.add_sample``,
+    which never blocks (an incomplete sample counts as missed).  A run
+    also marks the stream before its first replay and after its last
+    (``profiling.run_begins`` / ``run_ends``), and spans its capture,
+    frozen-tree copy and replays (``graph.capture``, ``graph.copy_frozen``,
+    ``graph.replay``).
   * A capture or replay that fails raises: nothing runs eagerly instead.
 
 The Simulator decides where graphs run (``simulate.py``); this module
-imports nothing of the port but torch.
+imports nothing of the port but torch and ``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -76,6 +87,8 @@ import threading
 import time
 
 import torch
+
+from coulomb_oscillators_tpu_torch.utils import profiling as P
 
 # (object, attribute name) of integer counters that replays advance
 _counters = []
@@ -183,6 +196,10 @@ class StepGraph:
         self._frozen = None        # the graph's copy of the frozen tree
         self._frozen_src = None    # the tree object copied in last
         self._per_replay = []      # (obj, attr, what one replay adds)
+        self._stages = []          # (name, event) stage marks of the
+                                   # captured step, external timing events
+        self._sample = 0           # steps of the run whose last replay the
+                                   # stage events hold, not yet read
 
     @property
     def segments(self) -> int:
@@ -206,22 +223,37 @@ class StepGraph:
             raise ValueError(f"CUDA graphs need CUDA tensors, got "
                              f"{state[0].device}")
         key = self._key_of(state, frozen, static)
+        if self._sample:
+            self._resolve()
         if key != self._key:
-            self._capture(state, frozen, key)
+            with P.span("graph.capture"):
+                self._capture(state, frozen, key)
         elif frozen is not self._frozen_src:
-            _copy_into(_leaves(self._frozen), _leaves(frozen))
+            with P.span("graph.copy_frozen"):
+                _copy_into(_leaves(self._frozen), _leaves(frozen))
             self._frozen_src = frozen
         _copy_into(self._state, state)
-        for _ in range(k):
-            for i, graph in enumerate(self._segments):
-                graph.replay()
-                if i < len(self._cuts):
-                    fn, x, out = self._cuts[i]
-                    out.copy_(fn(x))
+        dev = state[0].device
+        P.run_begins(dev, k)
+        with P.span("graph.replay"):
+            for _ in range(k):
+                for i, graph in enumerate(self._segments):
+                    graph.replay()
+                    if i < len(self._cuts):
+                        fn, x, out = self._cuts[i]
+                        out.copy_(fn(x))
+        P.run_ends(dev)
+        if self._stages and P.recording():
+            self._sample = k
         self.replays += k
         for obj, attr, d in self._per_replay:
             setattr(obj, attr, getattr(obj, attr) + d * k)
         return _like(state, (x.clone() for x in self._state))
+
+    def _resolve(self) -> None:
+        """Hand the pending stage sample to ``profiling.add_sample``."""
+        steps, self._sample = self._sample, 0
+        P.add_sample(self._stages, steps)
 
     def _capture(self, state, frozen, key) -> None:
         t0 = time.perf_counter()
@@ -233,7 +265,7 @@ class StepGraph:
         before = _read_counters(counters)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), P.stage_sink(False):
             # the warm-up: every lazy initialisation, on scratch copies
             # (a mesh body's collectives run for real)
             _copy_into(st, self.body(_like(state, st), fz))
@@ -244,7 +276,8 @@ class StepGraph:
         torch.cuda.empty_cache()
         self._pool = torch.cuda.graph_pool_handle()
         _capturing.graph = self
-        with torch.cuda.stream(side):
+        stages = []
+        with torch.cuda.stream(side), P.stage_sink(stages):
             try:
                 self._begin()
                 _copy_into(st, self.body(_like(state, st), fz))
@@ -261,6 +294,7 @@ class StepGraph:
             setattr(obj, attr, n)
         self._state, self._frozen = st, fz
         self._frozen_src, self._key = frozen, key
+        self._stages = stages
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
 
@@ -297,7 +331,9 @@ class StepGraph:
     def release(self) -> None:
         """Free every segment, their memory pool, the collectives' buffers
         and the static buffers, all together (the next run captures
-        again)."""
+        again); a pending stage sample is read first."""
+        if self._sample:
+            self._resolve()
         if self._cuts:
             # the buffers were last written on the replaying stream
             torch.cuda.synchronize(self._cuts[0][2].device)
@@ -307,3 +343,4 @@ class StepGraph:
         self._pool = self._open = None
         self._state = self._frozen = None
         self._frozen_src = self._key = None
+        self._stages = []

@@ -70,20 +70,25 @@ def test_op_histogram_reads_trace_files(tmp_path):
 
 def test_trace_records_a_cpu_profile(tmp_path):
     """A recorded CPU profile: host operators only, so the device
-    histogram is empty and the host one names the matmul; the trace file
-    and the profiler object agree."""
+    histogram is empty and the host one names the matmul; the block's
+    program span is on the trace, and its alignment is written beside
+    it."""
     x = torch.randn(64, 64)
-    with P.trace(str(tmp_path / "tr")) as prof:
+    with P.trace(str(tmp_path / "tr")):
         for _ in range(3):
-            x = x @ x * 0.01
+            with P.span("test.matmul"):
+                x = x @ x * 0.01
     assert (tmp_path / "tr" / P.TRACE_FILE).exists()
     assert P.op_histogram(str(tmp_path / "tr")) == {}
-    assert P.op_histogram(prof) == {}
     host = P.op_histogram(str(tmp_path / "tr"), top=None,
                           categories=("cpu_op",))
     assert "aten::mm" in host and host["aten::mm"] > 0
-    host2 = P.op_histogram(prof, top=None, categories=("cpu_op",))
-    assert host2["aten::mm"] == pytest.approx(host["aten::mm"], rel=1e-3)
+    spans = P.op_histogram(str(tmp_path / "tr"), top=None,
+                           categories=("user_annotation",))
+    assert spans["test.matmul"] > 0
+    with open(tmp_path / "tr" / P.TRACE_FILE) as f:
+        clock = json.load(f)["programSpans"]
+    assert clock["matched"] == 3 and clock["merged"] == 0
 
 
 def test_trace_propagates_the_blocks_error(tmp_path):
@@ -253,6 +258,14 @@ def test_profile_force_fmm2_kd_traces(tmp_path):
     assert rec["config"]["engine"] == "fmm2_kd" and rec["config"]["ts"] == 4
     assert rec["wall_ms_per_step"] > 0 and rec["graphs"] is False
     assert rec["config"]["precision"] == "float32"
+    # two re-sort cycles traced; each stage of the step timed (host times
+    # here), no graph sample to miss, no device interval to leave a gap
+    assert rec["traced_steps"] == 8
+    assert set(rec["stage_ms_per_step"]) == set(PF.STEP_STAGES)
+    assert all(v > 0 for v in rec["stage_ms_per_step"].values())
+    assert rec["stage_samples_missed"] == 0 and rec["idle_gaps"] == []
+    assert rec["span_clock"]["matched"] > 0 and rec["span_clock"]["merged"] > 0
+    assert "device_busy_share" not in rec
     rec = PF.prod_trace(1024, 3, 2.0, torch.device("cpu"),
                         str(tmp_path / "pt64"), ts=4, resort=1, pipeline=1,
                         graphs=False, engine="fmm2_kd", precision="float64")
