@@ -27,6 +27,9 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      async rebuild pipeline (the first boundary primes it, the next one
      adopts a background re-sort with a repad); positions stay finite and
      the P2P kernel's launch count equals the number of force evaluations;
+     every traversal of that run (the build, the priming refresh, the
+     re-sorts) ran on the card, none on the host, with one to 2L + 1
+     launches of the traversal kernel each;
   6. the direct kernel: at n=1000 (dims 2 and 3) against Kahan, mean
      relative error <= 1e-6; on the CLI's 3D Gaussian beam at N=4096
      (ladder 1), 30001 (the CLI's default) and 262144, and on its 2D KV
@@ -89,7 +92,8 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      view renders them, the PNGs decode to 792 x 792 with a non-empty red
      channel;
  14. the native library: every N=1M kd build of phases 3-5 went through
-     co_native, none through the numpy traversal;
+     co_native (the kd sort and the geometry; their traversals ran on the
+     card, phase 5), none through the numpy traversal;
  15. multi-device (parallel/*, Simulator(mesh=), cli -chips) at N=1M, p=6,
      r=1.67: ranks started by parallel.mesh.spawn, 2 and then 4 of them
      sharing cuda:0 (gloo, collectives through host memory), then 1 with
@@ -196,7 +200,15 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      lost its kernels makes its study raise), CO_M2L_FLY as it was; one
      JSON line with the rows and the card.  The studies run in a process
      of their own (one that traced the earlier phases lost kernel events
-     from later traces; the cause is not known).
+     from later traces; the cause is not known);
+ 21. the traversal kernel (csrc/traverse.cu, through ops/fmm/traverse.py)
+     at the main path's shapes: the 1M production beam (its auto stale
+     margin at 16/2/2) and the CLI's N=30001 in dim 3, fmm2_kd's 2D beam
+     at N=1M and 30001 in dim 2 (scripts.traverse_bench): the engine's
+     card lists equal the native traversal's (near element for element,
+     m2l after a (target, source) sort), and so do the lists made from
+     the plain version's pairs on the same card tensors; the frontier
+     timed by CUDA events beside the plain version and its byte bound.
 
 Any failure raises: the script then exits non-zero without its last line.
 Usage, from the repository root:  python3 chip_smoke.py
@@ -1996,6 +2008,31 @@ def _phase_far_studies(smi):
              f"{len(held)} float32 variants == 12, each <= {TOL}")
 
 
+def _phase_traversal(dev, smi):
+    """Phase 21: the traversal kernel against the native traversal and the
+    plain version at the main path's shapes, in dims 3 and 2.  Returns
+    the rows, the 1M production beam's first, and the kernel's launches
+    in the phase."""
+    from coulomb_oscillators_tpu_torch.ops.fmm import traverse
+    from coulomb_oscillators_tpu_torch.scripts import traverse_bench as TB
+
+    launches = traverse.launches
+    rows = []
+    for name in ("1m", "30001", "2d_1m", "2d_30001"):
+        row = TB.run_case(name, 3, True, dev)
+        print(json.dumps({"traversal": row, "card": smi}), flush=True)
+        _require(row["equal"] and row["plain_equal"],
+                 f"traversal {name}: the card's lists and the plain "
+                 f"version's equal the native's")
+        _require(row["reruns"] == 0 and row["levels"] <= 2 * row["L"] + 1,
+                 f"traversal {name}: {row['levels']} launches, no rerun "
+                 f"with buffers sized by an earlier traversal")
+        rows.append(row)
+    _require([r["dim"] for r in rows] == [3, 3, 2, 2],
+             f"dims {[r['dim'] for r in rows]}")
+    return rows, traverse.launches - launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2019,7 +2056,8 @@ def main() -> int:
     from coulomb_oscillators_tpu_torch.models import oscillator as M
     from coulomb_oscillators_tpu_torch.ops import direct as D
     from coulomb_oscillators_tpu_torch.ops import energy as E
-    from coulomb_oscillators_tpu_torch.ops.fmm import kdtree, p2p_cuda
+    from coulomb_oscillators_tpu_torch.ops.fmm import (kdtree, p2p_cuda,
+                                                       traverse)
     from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import KdFmmEngine
     from coulomb_oscillators_tpu_torch.ops.reductions import mean_rel_err
     from coulomb_oscillators_tpu_torch.simulate import Simulator
@@ -2119,6 +2157,9 @@ def main() -> int:
     state = particle_state_from_numpy(pos_h, vel_h, device=dev)
     torch.cuda.synchronize()
     p2p_cuda.launches = 0
+    traverse.launches = traverse.reruns = 0
+    trav0 = (kdtree.device_traversals, kdtree.native_traversals,
+             kdtree.raw_traversals)
     ti = time.perf_counter()
     sim.init_acc(state)
     torch.cuda.synchronize()
@@ -2138,6 +2179,11 @@ def main() -> int:
     torch.cuda.synchronize()
     p2p_launches = p2p_cuda.launches
     sim.close()
+    card_trav, host_trav, raw_trav = (
+        now - was for now, was in zip((kdtree.device_traversals,
+                                       kdtree.native_traversals,
+                                       kdtree.raw_traversals), trav0))
+    trav_launches, trav_runs = traverse.launches, traverse.reruns + card_trav
     evals = 1 + WINDOWS * ts
     _require(bool(torch.isfinite(final.pos).all())
              and final.pos.shape == (N, 3), "finite [N, 3] positions")
@@ -2146,13 +2192,24 @@ def main() -> int:
     _require(sim.rebuilds["adopt_full"] == WINDOWS - 2,
              f"{WINDOWS - 2} adopted background rebuilds: {dict(sim.rebuilds)}")
     _require(native._lib is not None, "the native host library was used")
+    # the build, the priming refresh and every re-sort, adopted or not
+    _require(host_trav == 0 and raw_trav == 0
+             and card_trav >= 1 + sum(sim.rebuilds.values()),
+             f"every traversal on the card: {card_trav} on the card, "
+             f"{host_trav} native, {raw_trav} numpy; rebuilds "
+             f"{dict(sim.rebuilds)}")
+    _require(trav_runs <= trav_launches <= trav_runs * (2 * sim._fmm.L + 1),
+             f"{trav_launches} traversal kernel launches for {trav_runs} "
+             f"runs, one a level")
     per_step = sorted(w / ts for w in win_s[1:])
     print(f"simulator N={N}: init_acc {ti:.3f} s; window s {win_s}; "
           f"median s/step (windows 2-{WINDOWS}) {per_step[len(per_step) // 2]:.4f}; "
           f"rebuilds {dict(sim.rebuilds)}; boundary wait s {wait_s}; "
           f"host rebuild s {job_s}; "
           f"last rebuild breakdown {sim._fmm.last_build_times}; "
-          f"p2p launches {p2p_launches} = force evals {evals}")
+          f"p2p launches {p2p_launches} = force evals {evals}; "
+          f"traversals on the card {card_trav} ({trav_launches} kernel "
+          f"launches)")
     del sim, state, final, pos
     raw_main = kdtree.raw_traversals
     _phase("simulator", t0)
@@ -2402,6 +2459,11 @@ def main() -> int:
     _phase_far_studies(smi)
     _phase("far-field studies", t0)
 
+    # ---- 21. the traversal kernel at the main path's shapes -------------
+    t0 = time.perf_counter()
+    trav_rows, trav_phase_launches = _phase_traversal(dev, smi)
+    _phase("traversal", t0)
+
     row, drow = p2p_rows[0], direct_rows[3, N_CLI]
     # no single PyTorch call computes a masked leaf-pair sum or an
     # all-pairs softened Coulomb sum, so library_ms is null
@@ -2480,7 +2542,21 @@ def main() -> int:
          "max_rel_err": drow["max_rel_err"], "ms": drow["ms"],
          "plain_ms": drow["plain_ms"], "pairs": drow["pairs"],
          **{k: drow[k] for k in bound_keys}, "library_ms": None,
-         "cases": [direct_rows[c] for c in DIRECT_CASES]}]}))
+         "cases": [direct_rows[c] for c in DIRECT_CASES]},
+        {"name": "traverse", "route": "cuda",
+         "source": "coulomb_oscillators_tpu_torch/csrc/traverse.cu",
+         "replaces": None,
+         "replaces_host": "coulomb_oscillators_tpu_torch/native/"
+                          "co_native.cpp co_traverse_fine",
+         "launches": trav_launches,
+         "launches_by_path": {"simulator": trav_launches,
+                              "traversal": trav_phase_launches},
+         "equal": True, "ms": trav_rows[0]["frontier_ms"],
+         "plain_ms": trav_rows[0]["plain_frontier_ms"],
+         "bound_ms": trav_rows[0]["frontier_bound_ms"],
+         "bound_by": "bytes",
+         "bound_share": trav_rows[0]["frontier_share"],
+         "library_ms": None, "cases": trav_rows}]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,14 @@ Twin of ``coulomb_oscillators_tpu/native/__init__.py``: the same functions
 compiled with ``g++``.  The port builds its own copy so that it reads no
 file of the JAX package.  Differences from the twin:
 
+  * ``traverse_tables``: the MAC's per-node tables (``sz``, ``pm2``),
+    which ``co_traverse_fine`` computes through the same C entry; the
+    card's traversal (``ops/fmm/traverse.py``) takes them from here, so
+    that its decisions are the host's bit for bit (``std::pow`` in float
+    has no device twin).  The library is built with
+    ``-ffp-contract=off``, so no compiler fuses the MAC's products and
+    sums into FMAs that the card does not make either;
+
   * the library is built into the port's git-ignored ``build/`` directory
     at the repository root, never into the JAX package's directory;
   * the functions raise when the library cannot be built or loaded; the
@@ -120,7 +128,8 @@ def get_lib():
             return _lib
         t0 = time.perf_counter()
         so, _ = build_library(SRC, "co_native",
-                           ["g++", "-O3", "-std=c++17", "-shared", "-fPIC"])
+                              ["g++", "-O3", "-std=c++17", "-shared",
+                               "-fPIC", "-ffp-contract=off"])
         lib = ctypes.CDLL(so)
         build_seconds = time.perf_counter() - t0
         c_i32p = ctypes.POINTER(ctypes.c_int32)
@@ -141,6 +150,11 @@ def get_lib():
             c_i32p, ctypes.c_int64, c_i64p,
             c_i32p, c_i32p, ctypes.c_int64, c_i64p]
         lib.co_traverse_fine.restype = ctypes.c_int32
+        lib.co_traverse_tables.argtypes = [
+            c_f32p, c_f32p, c_i32p, ctypes.c_int32, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_float, ctypes.c_int32,
+            ctypes.c_int64, ctypes.c_float, c_f32p, c_f32p]
+        lib.co_traverse_tables.restype = None
         _lib = lib
         return lib
 
@@ -189,6 +203,27 @@ def node_geometry(pos_s: np.ndarray, L: int):
                          _ptr(rb, ctypes.c_float),
                          _ptr(lam, ctypes.c_float))
     return center, lb, rb, lam
+
+
+def traverse_tables(lb, rb, mult, L, sub_depth, n, dim, p, radius,
+                    mult_floor=1, sub_boost=1.0):
+    """The MAC's per-node tables of :func:`traverse_fine` over the heap's
+    2^(L+1)-1 nodes: (sz, pm2) float32, the squared diagonal of each
+    node's bounds and its squared acceptance value (the pair is accepted
+    iff max(pm2) * max(sz) < dist2 in float32)."""
+    lib = get_lib()
+    lb = np.ascontiguousarray(lb, dtype=np.float32)
+    rb = np.ascontiguousarray(rb, dtype=np.float32)
+    mult = np.ascontiguousarray(mult, dtype=np.int32)
+    M = (1 << (L + 1)) - 1
+    sz = np.empty(M, dtype=np.float32)
+    pm2 = np.empty(M, dtype=np.float32)
+    lib.co_traverse_tables(
+        _ptr(lb, ctypes.c_float), _ptr(rb, ctypes.c_float),
+        _ptr(mult, ctypes.c_int32), L, n, dim, p, radius, int(mult_floor),
+        (1 << (L - sub_depth + 1)) - 1, float(sub_boost),
+        _ptr(sz, ctypes.c_float), _ptr(pm2, ctypes.c_float))
+    return sz, pm2
 
 
 def traverse_fine(center, lb, rb, mult, L, sub_depth, n, dim, p, radius,

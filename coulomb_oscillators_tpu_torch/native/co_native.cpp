@@ -62,9 +62,54 @@ void co_kdtree_build(const float* pos, int32_t* perm, int64_t n, int32_t L,
 }
 
 // ---------------------------------------------------------------------------
-// Dual-tree MAC traversal (kd_admissible semantics,
-// fmm_cart3_kdtree.cuh:395-414): admissible iff
+// The MAC's per-node tables over all 2^(L+1)-1 heap nodes (kd_admissible
+// semantics, fmm_cart3_kdtree.cuh:395-414): admissible iff
 // (radius*Mf)^2 * max(diag2_a, diag2_b) < dist2,  Mf=(max(mult)/n)^(1/(3p+6)).
+//   sz[i]:  the squared diagonal of node i's bounds (lb, rb);
+//   pm2[i]: (rad_i * Mf_i)^2.
+// Mf = (mult/n)^expo is monotone in mult, so the pair value
+// (radius*(max mult)^expo)^2 = max of the two node values.  Precomputing it
+// hoists std::pow out of the traversal hot loop (the pow dominated at deep
+// refinements: millions of visited pairs).
+// mult_floor: Mf is floored at mult_floor/n so acceptance below that
+// granularity is never LOOSER than at mult_floor-sized cells.
+// boost_from/sub_boost: nodes at heap index >= boost_from (i.e. BELOW
+// the 128-lane block level) use radius*sub_boost — sub-block M2L
+// acceptances replace interactions the block-granularity MAC computed
+// EXACTLY (P2P), so they must carry negligible error; boosting the
+// acceptance radius by b cuts their per-pair error ~b^(p+1) while still
+// converting the far corners of near block pairs into M2L (measured:
+// unboosted sub-leaf MAC costs 4x force error at fixed (p, r); see
+// KdFmmEngine).
+// Every traversal reads these two tables: co_traverse, co_traverse_fine
+// and the card's frontier (csrc/traverse.cu), which cannot match
+// std::pow's float result on the device and so takes the tables from here.
+// ---------------------------------------------------------------------------
+void co_traverse_tables(const float* lb, const float* rb,
+                        const int32_t* mult, int32_t L, int64_t n,
+                        int32_t dim, int32_t p, float radius,
+                        int32_t mult_floor, int64_t boost_from,
+                        float sub_boost, float* sz, float* pm2) {
+  const int64_t M = (int64_t(1) << (L + 1)) - 1;
+  for (int64_t i = 0; i < M; ++i) {
+    float s = 0;
+    for (int32_t a = 0; a < dim; ++a) {
+      float d = rb[i * dim + a] - lb[i * dim + a];
+      s += d * d;
+    }
+    sz[i] = s;
+  }
+  const float expo = 1.0f / float(3 * p + 6);
+  for (int64_t i = 0; i < M; ++i) {
+    float m = float(std::max(mult[i], mult_floor));
+    float Mf = std::pow(m / float(n), expo);
+    float rad = (i >= boost_from) ? radius * sub_boost : radius;
+    pm2[i] = (rad * Mf) * (rad * Mf);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Dual-tree MAC traversal over the tables above.
 //
 // Heap arrays over all 2^(L+1)-1 nodes.  Writes up to cap entries into
 // m2l_out / p2p_out as (i, j) int32 pairs (unordered, i<=j; self pairs only
@@ -80,37 +125,9 @@ int32_t co_traverse(const float* center, const float* lb, const float* rb,
                     int64_t p2p_cap, int64_t* p2p_count) {
   const int64_t leaf0 = (int64_t(1) << L) - 1;
   const int64_t M = (int64_t(1) << (L + 1)) - 1;
-  std::vector<float> sz(M);
-  for (int64_t i = 0; i < M; ++i) {
-    float s = 0;
-    for (int32_t a = 0; a < dim; ++a) {
-      float d = rb[i * dim + a] - lb[i * dim + a];
-      s += d * d;
-    }
-    sz[i] = s;
-  }
-  const float expo = 1.0f / float(3 * p + 6);
-  // (radius * Mf)^2 per node: Mf = (mult/n)^expo is monotone in mult, so
-  // the pair value (radius*(max mult)^expo)^2 = max of the two node values.
-  // Precomputing it hoists std::pow out of the traversal hot loop (the pow
-  // dominated at deep refinements: millions of visited pairs).
-  // mult_floor: Mf is floored at mult_floor/n so acceptance below that
-  // granularity is never LOOSER than at mult_floor-sized cells.
-  // boost_from/sub_boost: nodes at heap index >= boost_from (i.e. BELOW
-  // the 128-lane block level) use radius*sub_boost — sub-block M2L
-  // acceptances replace interactions the block-granularity MAC computed
-  // EXACTLY (P2P), so they must carry negligible error; boosting the
-  // acceptance radius by b cuts their per-pair error ~b^(p+1) while still
-  // converting the far corners of near block pairs into M2L (measured:
-  // unboosted sub-leaf MAC costs 4x force error at fixed (p, r); see
-  // KdFmmEngine).
-  std::vector<float> pm2(M);
-  for (int64_t i = 0; i < M; ++i) {
-    float m = float(std::max(mult[i], mult_floor));
-    float Mf = std::pow(m / float(n), expo);
-    float rad = (i >= boost_from) ? radius * sub_boost : radius;
-    pm2[i] = (rad * Mf) * (rad * Mf);
-  }
+  std::vector<float> sz(M), pm2(M);
+  co_traverse_tables(lb, rb, mult, L, n, dim, p, radius, mult_floor,
+                     boost_from, sub_boost, sz.data(), pm2.data());
   int64_t nm = 0, np_ = 0;
   std::vector<std::pair<int64_t, int64_t>> stack;
   stack.reserve(4096);
@@ -189,26 +206,12 @@ int32_t co_traverse_fine(const float* center, const float* lb,
   const int64_t Gblk = Gsub >> S;
   const int32_t ngroups = 1 << S;
   const int32_t shift = 32 - ngroups;
-  std::vector<float> sz(M);
-  for (int64_t i = 0; i < M; ++i) {
-    float s = 0;
-    for (int32_t a = 0; a < dim; ++a) {
-      float d = rb[i * dim + a] - lb[i * dim + a];
-      s += d * d;
-    }
-    sz[i] = s;
-  }
-  const float expo = 1.0f / float(3 * p + 6);
   // sub-block nodes (below the 128-lane block level) accept with a boosted
-  // radius: see co_traverse on why.
+  // radius: see co_traverse_tables on why.
   const int64_t boost_from = (int64_t(1) << (L - S + 1)) - 1;
-  std::vector<float> pm2(M);
-  for (int64_t i = 0; i < M; ++i) {
-    float m = float(std::max(mult[i], mult_floor));
-    float Mf = std::pow(m / float(n), expo);
-    float rad = (i >= boost_from) ? radius * sub_boost : radius;
-    pm2[i] = (rad * Mf) * (rad * Mf);
-  }
+  std::vector<float> sz(M), pm2(M);
+  co_traverse_tables(lb, rb, mult, L, n, dim, p, radius, mult_floor,
+                     boost_from, sub_boost, sz.data(), pm2.data());
   std::vector<std::pair<int32_t, int32_t>> m2l_u;  // unordered admissible
   std::vector<std::pair<int32_t, int32_t>> near_u; // unordered sub-leaf
   m2l_u.reserve(1 << 20);

@@ -5,9 +5,11 @@ capability: fmm_cart3_kdtree.cuh), dims 2 and 3, float32 and float64.  The
 design is the twin's: equal-count median splits make every segment
 boundary static, so leaves pad to a fixed capacity C; the tree order comes
 from the native C++ kd builder on the host or from a device builder (Morton
-or per-level kd sort), the dual-tree MAC traversal runs on the host at
-rebuild time (the native library, or the numpy ``_traverse_raw`` where the
-library is absent); the near field is resolved at sub-leaf granularity and
+or per-level kd sort), the dual-tree MAC traversal runs at rebuild time on
+the card for particles on a card (``traverse.py``, the native library's
+decisions bit for bit) and on the host for particles on the CPU (the
+native library, or the numpy ``_traverse_raw`` where the library is
+absent); the near field is resolved at sub-leaf granularity and
 computed on directed (target sub-leaf) x (source block) tiles with packed
 lane-group masks.
 
@@ -44,6 +46,7 @@ import functools
 import math
 import os
 import threading
+import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -51,7 +54,7 @@ import torch
 
 from coulomb_oscillators_tpu_torch import native
 from coulomb_oscillators_tpu_torch.config import SimConfig, round_to_dtype
-from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
+from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda, traverse
 from coulomb_oscillators_tpu_torch.ops.multipole import operators as mop
 from coulomb_oscillators_tpu_torch.ops.multipole.tables import build_tables
 from coulomb_oscillators_tpu_torch.utils import profiling as P
@@ -214,9 +217,13 @@ def _build_col2d(p2p: np.ndarray, row_ptr: np.ndarray, G: int, Gblk: int,
 
 SORT_MODES = ("auto", "kd_native", "morton", "kd_device")
 
-# numpy traversals run (the host fallback where the native library is
-# absent); a run that must show it used the native library reads this
+# traversals run by path: the numpy one (the host fallback where the
+# native library is absent), the native library's on the host, and the
+# card's (ops/fmm/traverse.py); a run that must show which path its
+# rebuilds took reads these
 raw_traversals = 0
+native_traversals = 0
+device_traversals = 0
 _raw_lock = threading.Lock()
 
 
@@ -478,6 +485,7 @@ class KdFmmEngine:
         self.near_cap = 0
         self.stale_margin_abs = 0.0
         self._dev = {}
+        self._card = None         # traverse.DeviceTraversal, at first use
 
     @property
     def G_sub(self) -> int:
@@ -517,7 +525,7 @@ class KdFmmEngine:
         traversal on the host, or a device builder and the host traversal;
         lists uploaded to the device of `pos`."""
         if self.sort_mode in ("auto", "kd_native") and native.available():
-            return self.adopt(self.build_host(pos), pos.device)
+            return self.adopt(self.build_host(pos, pos.device), pos.device)
         return self.adopt(self.build_device_async(pos), pos.device)
 
     def build_device_async(self, pos: torch.Tensor) -> tuple:
@@ -534,24 +542,26 @@ class KdFmmEngine:
                                            self.dim)
             c_h, lb_h, rb_h = (x.cpu().numpy() for x in (center, lb, rb))
         with P.span("kd.traverse", bt):
-            m2l, p2p = self._traverse(c_h, lb_h, rb_h)
+            m2l, p2p = self._traverse(c_h, lb_h, rb_h, pos.device)
         inv = torch.empty_like(perm)
         inv[perm.long()] = torch.arange(self.n, dtype=perm.dtype,
                                         device=perm.device)
         return (perm, inv, center, lam, m2l, p2p, bt)
 
-    def build_host(self, pos: torch.Tensor) -> tuple:
+    def build_host(self, pos: torch.Tensor, device) -> tuple:
         """The whole host side of a rebuild from original-order positions;
-        returns the ingredients for :meth:`adopt`."""
+        returns the ingredients for :meth:`adopt`.  `device` is where the
+        lists will live: a card there runs the traversal."""
         bt = {}
         with P.span("kd.fetch", bt):
             pos_h = pos.detach().to("cpu", torch.float32).numpy()
-        return self._build_host_from(pos_h, bt)
+        return self._build_host_from(pos_h, bt, device)
 
     def build_host_padded(self, ppad_h: np.ndarray,
-                          inv_perm_old: np.ndarray) -> tuple:
+                          inv_perm_old: np.ndarray, device) -> tuple:
         """:meth:`build_host` fed from a host copy of the PADDED positions
-        and the inverse permutation they are padded under."""
+        and the inverse permutation they are padded under; `device` as
+        there."""
         bt = {}
         with P.span("kd.unpad_host", bt):
             flat = np.asarray(ppad_h, dtype=np.float32).reshape(-1,
@@ -559,9 +569,10 @@ class KdFmmEngine:
             # particle o sits at sorted slot inv[o], padded slot
             # unpad[inv[o]]
             pos_h = flat[self.st.unpad_gather[np.asarray(inv_perm_old)]]
-        return self._build_host_from(pos_h, bt)
+        return self._build_host_from(pos_h, bt, device)
 
-    def _build_host_from(self, pos_h: np.ndarray, bt: dict) -> tuple:
+    def _build_host_from(self, pos_h: np.ndarray, bt: dict,
+                         device) -> tuple:
         with P.span("kd.sort", bt, "kd"):
             perm = native.kdtree_build(pos_h, self.L)
             inv = np.empty_like(perm)
@@ -570,7 +581,7 @@ class KdFmmEngine:
             c_h, lb_h, rb_h, lam_h = native.node_geometry(pos_h[perm],
                                                           self.L)
         with P.span("kd.traverse", bt):
-            m2l, p2p = self._traverse(c_h, lb_h, rb_h)
+            m2l, p2p = self._traverse(c_h, lb_h, rb_h, device)
         return (perm, inv, c_h, lam_h, m2l, p2p, bt)
 
     def adopt(self, built: tuple, device) -> FmmState:
@@ -579,21 +590,38 @@ class KdFmmEngine:
         return self._lists_to_state(perm, inv, c_h, lam_h, m2l, p2p,
                                     dict(bt), device)
 
-    def _traverse(self, c_h, lb_h, rb_h):
+    def _traverse(self, c_h, lb_h, rb_h, device=None):
         """Dual-granularity traversal with the temporal MAC slack (node
         bounds inflated by `stale_margin_abs`, a scalar or a per-axis
         vector, or by the ``CO_STALE_MARGIN`` environment variable when
-        set, so frozen lists stay admissible for the reuse window): the
-        native single pass, or without the native library the numpy
-        ``_traverse_raw`` and :meth:`_fine_lists`, as in the reference.
-        Returns (m2l_directed, near), target-sorted."""
-        global raw_traversals
+        set, so frozen lists stay admissible for the reuse window).  For
+        lists bound for a CUDA `device`: the card's frontier on the native
+        library's tables (``traverse.py``; M2L entries ordered by source
+        within a target).  Otherwise the native single pass, or without
+        the native library the numpy ``_traverse_raw`` and
+        :meth:`_fine_lists`, as in the reference; a card never falls back
+        to the host: without the native library its tables raise.
+        Returns (m2l_directed, near), target-sorted host int64 arrays."""
+        global raw_traversals, native_traversals, device_traversals
         L, S = self.L, self.sub_depth
-        sm_env = os.environ.get("CO_STALE_MARGIN")
-        sm = float(sm_env) if sm_env is not None else self.stale_margin_abs
-        if np.any(np.asarray(sm) > 0.0):
-            lb_h = (lb_h - sm).astype(lb_h.dtype)
-            rb_h = (rb_h + sm).astype(rb_h.dtype)
+        lb_h, rb_h = self.inflated_bounds(lb_h, rb_h)
+        if device is not None and torch.device(device).type == "cuda":
+            t0 = time.perf_counter()
+            sz, pm2 = native.traverse_tables(
+                lb_h, rb_h, self.st.mult, L, S, self.n, self.dim, self.p,
+                float(self.config.tree_radius),
+                mult_floor=self.mac_mult_floor, sub_boost=self.mac_sub_boost)
+            if self._card is None:
+                self._card = traverse.DeviceTraversal()
+            m2l_d, near, info = self._card.run(c_h, sz, pm2, L, S,
+                                               self.config.coll, device)
+            with _raw_lock:
+                device_traversals += 1
+            if P.recording():
+                P.count("kd.traverse.device", 1, time.perf_counter() - t0)
+                P.count("kd.traverse.device.levels", info["levels"])
+                P.count("kd.traverse.device.reruns", info["reruns"])
+            return m2l_d, near
         if not native.available():
             with _raw_lock:
                 raw_traversals += 1
@@ -605,6 +633,8 @@ class KdFmmEngine:
                 sub_boost=self.mac_sub_boost)
             near, m2l_d = self._fine_lists(m2l_u, p2p_u)
             return m2l_d, near
+        with _raw_lock:
+            native_traversals += 1
         # seed capacities from the previous traversal
         last = getattr(self, "last_raw_counts", None) or {}
         caps = {k: max(1 << 20, int(last.get(k, 0) * 1.3))
@@ -618,6 +648,16 @@ class KdFmmEngine:
         self.last_raw_counts = {"m2l": int(m2l_d.shape[0]),
                                 "near": int(near.shape[0])}
         return m2l_d, near
+
+    def inflated_bounds(self, lb_h, rb_h):
+        """Node bounds as the traversal sees them: inflated by
+        `stale_margin_abs` or ``CO_STALE_MARGIN`` (see :meth:`_traverse`)."""
+        sm_env = os.environ.get("CO_STALE_MARGIN")
+        sm = float(sm_env) if sm_env is not None else self.stale_margin_abs
+        if np.any(np.asarray(sm) > 0.0):
+            lb_h = (lb_h - sm).astype(lb_h.dtype)
+            rb_h = (rb_h + sm).astype(rb_h.dtype)
+        return lb_h, rb_h
 
     def _fine_lists(self, m2l_u: np.ndarray, p2p_dir: np.ndarray):
         """Dual-granularity lists from the numpy traversal's output (the
@@ -777,7 +817,7 @@ class KdFmmEngine:
             lam = np.maximum(0.5 * np.linalg.norm(mx - mn, axis=1),
                              1e-30).astype(h.dtype)
         with P.span("kd.traverse", bt):
-            m2l, p2p = self._traverse(center, mn, mx)
+            m2l, p2p = self._traverse(center, mn, mx, ppad.device)
         return self._lists_to_state(
             fs.perm if perm is None else perm,
             fs.inv_perm if inv_perm is None else inv_perm,

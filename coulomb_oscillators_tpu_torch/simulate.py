@@ -423,7 +423,7 @@ class Simulator:
             pos_h = _HostCopy(cur.pos)
             self._pending = self._executor().submit(P.carry(
                 lambda: eng.adopt(
-                    eng.build_host(torch.from_numpy(pos_h.numpy())),
+                    eng.build_host(torch.from_numpy(pos_h.numpy()), device),
                     device)))
 
     def _rebuild_padded(self) -> None:
@@ -508,7 +508,7 @@ class Simulator:
 
             def job(ppad_h, inv_h, prev=prev, fs_cur=fs_cur):
                 fs_new = eng.adopt(eng.build_host_padded(
-                    ppad_h.numpy(), inv_h.numpy()), device)
+                    ppad_h.numpy(), inv_h.numpy(), device), device)
                 fs_old = prev.result()[0] if prev is not None else fs_cur
                 return fs_new, eng.make_repad(fs_old, fs_new)
 
