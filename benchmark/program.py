@@ -40,9 +40,18 @@ def sim_config(config: dict, workload: dict):
 
 
 def make_beam(config: dict, cfg, seed: int):
-    """The seeded beam of a configuration (host float32 arrays): u_std =
-    omega0 * x_std, as the reference's CLI sets it."""
-    x_std = config["beam"]["x_std"]
+    """The seeded beam of a configuration (host float32 arrays), by its
+    ``beam.kind``: ``"gaussian"`` (the default) with u_std = omega0 *
+    x_std, as the reference's CLI sets it, or ``"kv"``, the upstream 2D
+    program's KV beam of the semi-axes ``beam.A`` and depressed phase
+    advances ``beam.omega`` the file states."""
+    beam = config["beam"]
+    kind = beam.get("kind", "gaussian")
+    if kind == "kv":
+        return B.kv(config["n"], beam["A"], beam["omega"], seed)
+    if kind != "gaussian":
+        raise ValueError(f"no beam of kind {kind!r}")
+    x_std = beam["x_std"]
     u_std = [w * x for w, x in zip(cfg.omega0, x_std)]
     return B.gaussian(config["n"], x_std, u_std, seed)
 

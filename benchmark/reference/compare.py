@@ -9,9 +9,10 @@ time through its own entry point, and records what it hands back: a
   ``targets``: particle indices drawn from the seed;
   ``start``: ``{"pos", "acc"}``, the seeded beam and the acceleration the
       program's set-up computed for it (or None);
-  ``steps``: consecutive states ``{"pos", "vel", "acc", "force"}`` [N, 3]
-      in the original particle order, step j + 1 being the program's step
-      from step j; ``force`` marks the steps whose force is checked;
+  ``steps``: consecutive states ``{"pos", "vel", "acc", "force"}`` [N, D]
+      (D = 3 or 2) in the original particle order, step j + 1 being the
+      program's step from step j; ``force`` marks the steps whose force is
+      checked;
   ``snapshot``: ``{"path", "pos", "vel"}``, a file the program wrote and
       the state it was handed (or None).
 
@@ -159,10 +160,11 @@ def readings(record: dict, device, control: str | None = None,
                                      for x in arrays))
         snap = record.get("snapshot")
         if snap is not None:
-            pos, vel = S.read(snap["path"])
-            n = snap["pos"].shape[0]
+            n, dim = snap["pos"].shape
+            pos, vel = S.read(snap["path"], dim)
             if pos.shape[0] != n:
-                out["snapshot_mismatch"] = float(abs(pos.shape[0] - n) * 6)
+                out["snapshot_mismatch"] = float(abs(pos.shape[0] - n)
+                                                 * 2 * dim)
             else:
                 out["snapshot_mismatch"] = float(
                     (pos.view(np.uint32) != snap["pos"].view(np.uint32)).sum()

@@ -3,12 +3,14 @@ benchmark/tests -q`` from the repository's root; they run on the CPU, and
 the one marked ``cuda`` skips without a card).
 
 ``tiny_root`` is a copy of the benchmark (``BENCHMARK.json`` and
-``benchmark/``) in a temporary directory, with two cells added the way a
+``benchmark/``) in a temporary directory, with three cells added the way a
 later change adds one, by new files and new entries: ``tiny_beam.w`` (the
 1M configuration's file at N = 2000, the ``window`` driver at a 4/2/2
-cadence) and ``tiny_cli.s`` (the CLI configuration's file at N = 2001,
-the ``cli_loop`` driver with a snapshot every 20 steps).  Each keeps its
-source cell's limits.
+cadence), ``tiny_cli.s`` (the CLI configuration's file at N = 2001, the
+``cli_loop`` driver with a snapshot every 20 steps) and ``tiny_kd2.w``
+(the 1M configuration's file made 2D: ``fmm2_kd`` at p = 4, r = 2, N =
+2000, the KV beam of the 2D CLI's defaults, the ``window`` driver at
+4/2/2).  Each keeps its source cell's limits.
 """
 
 from __future__ import annotations
@@ -26,17 +28,33 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
+WINDOW_442 = {"sim": {"tree_steps": 4, "tree_resort_every": 2,
+                      "tree_pipeline": 2},
+              "warmup_windows": 3, "steps_per_s": 20.0, "trace_steps": 4,
+              "check": {"targets": 256, "every": 2}}
+
+# the 2D CLI's default beam (cli.py: models/beams.matched_beam_2d at omega0
+# = 2 pi (6.22, 6.21), emittances (3e-5, 1e-5), tune depression 0.8): its
+# semi-axes, depressed phase advances and coupling xi, as numbers
+KD2 = {"engine": "fmm2_kd",
+       "beam": {"kind": "kv",
+                "A": [0.0018633884990322802, 0.0011320074052916915],
+                "omega": [34.56005498097551, 31.21486460606819]},
+       "sim": {"dim": 2, "omega0": [39.081412610657026, 39.018580757585234],
+               "xi": 0.0009292208408064241, "fmm_order": 4,
+               "tree_radius": 2.0}}
+
+# tiny config: (source config, source cell, tiny cell, N, traffic keys,
+# configuration keys; "sim" is merged into the source's)
 TINY = {
     "tiny_beam": ("kd3_beam_1m", "kd3_beam_1m.tuned", "tiny_beam.w", 2000,
-                  {"sim": {"tree_steps": 4, "tree_resort_every": 2,
-                           "tree_pipeline": 2},
-                   "warmup_windows": 3, "steps_per_s": 20.0,
-                   "trace_steps": 4,
-                   "check": {"targets": 256, "every": 2}}),
+                  WINDOW_442, {}),
     "tiny_cli": ("kd3_cli_30k", "kd3_cli_30k.snap200", "tiny_cli.s", 2001,
                  {"snapshot_every": 20, "warmup_blocks": 1,
                   "steps_per_s": 100.0, "trace_steps": 20,
-                  "check": {"targets": 2001, "every": 1}}),
+                  "check": {"targets": 2001, "every": 1}}, {}),
+    "tiny_kd2": ("kd3_beam_1m", "kd3_beam_1m.tuned", "tiny_kd2.w", 2000,
+                 WINDOW_442, KD2),
 }
 
 
@@ -46,11 +64,12 @@ def add_tiny_cells(root: str) -> None:
     bpath = os.path.join(root, "BENCHMARK.json")
     with open(bpath) as f:
         bench = json.load(f)
-    for name, (cfg, cell, tiny_cell, n, over) in TINY.items():
+    for name, (cfg, cell, tiny_cell, n, over, cover) in TINY.items():
         with open(os.path.join(root, "benchmark", "configs",
                                f"{cfg}.json")) as f:
             config = json.load(f)
-        config.update(name=name, n=n)
+        sim = dict(config["sim"], **cover.get("sim", {}))
+        config.update(cover, name=name, n=n, sim=sim)
         with open(os.path.join(root, "benchmark", "configs",
                                f"{name}.json"), "w") as f:
             json.dump(config, f)

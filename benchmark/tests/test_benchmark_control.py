@@ -2,8 +2,9 @@
 
   * the control (the reference in bfloat16 in the program's place) fails
     each tiny cell's limits while the program meets them; the force alone
-    in bfloat16, with the step in float32, fails the beam cell's (the CLI
-    configuration's own force error is as coarse as bfloat16's: PERF.md);
+    in bfloat16, with the step in float32, fails the beam cells' in 3D and
+    in 2D (the CLI configuration's own force error is as coarse as
+    bfloat16's: PERF.md);
   * a run whose timed path is broken underneath reads ``correct`` false,
     for each fault a one-chip cell can have: a step that returns its
     state unchanged, half of the particles left out of the force, an
@@ -22,7 +23,7 @@ import pytest
 from benchmark import harness as H
 from benchmark.reference import compare as CMP
 
-CELLS = ["tiny_beam.w", "tiny_cli.s"]
+CELLS = ["tiny_beam.w", "tiny_cli.s", "tiny_kd2.w"]
 SEED = 2 ** 31 + 101
 
 
@@ -34,7 +35,7 @@ def test_control_fails_and_program_passes(tiny_root, cell):
                          f"{cell}.json")["limits"]
     assert out["correct"], out["checks"]
     assert not all(ok for *_, ok in CMP.judge(out["control"], limits))
-    if cell == "tiny_beam.w":
+    if cell != "tiny_cli.s":
         assert not all(ok for *_, ok in CMP.judge(out["control_force"],
                                                   limits))
 
@@ -63,7 +64,9 @@ def _altered(monkeypatch):
     def window(self, state, frozen, k):
         out = orig(self, state, frozen, k)
         pos = out.pos.clone()
-        pos[0, 0, 2] += 1e-3        # one particle's z, 0.1 of its rms
+        # one particle's last axis: z in 3D (0.1 of its rms), y in 2D
+        # (1.8 of its rms)
+        pos[0, 0, -1] += 1e-3
         return out._replace(pos=pos)
     monkeypatch.setattr(Simulator, "_window", window)
 
@@ -82,7 +85,8 @@ def _snapshot_byte(monkeypatch):
 FAULTS = [("tiny_beam.w", _unchanged), ("tiny_beam.w", _half_left_out),
           ("tiny_beam.w", _altered), ("tiny_cli.s", _unchanged),
           ("tiny_cli.s", _half_left_out), ("tiny_cli.s", _altered),
-          ("tiny_cli.s", _snapshot_byte)]
+          ("tiny_cli.s", _snapshot_byte), ("tiny_kd2.w", _unchanged),
+          ("tiny_kd2.w", _half_left_out), ("tiny_kd2.w", _altered)]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS,

@@ -101,6 +101,12 @@ def test_a_cell_added_by_files_and_entries_runs(tmp_path):
     assert list(out)[-1] == "checks"
     assert set(out["checks"]) == {"drift_err", "kick_err", "nonfinite",
                                   "snapshot_mismatch"}
+    # a 2D configuration of fmm2_kd (KV beam) added the same way
+    out = H.run_cell(root, "tiny_kd2.w", 2 ** 31 + 13, 0.3, device="cpu")
+    assert out["correct"] and out["failed"] == 0
+    assert out["diag"]["steps"] == 8
+    assert set(out["checks"]) == {"force_err", "drift_err", "kick_err",
+                                  "nonfinite"}
 
 
 def _brute(row_ptr, col2d, nsub, n, L):
@@ -120,8 +126,8 @@ def _brute(row_ptr, col2d, nsub, n, L):
     return pairs, entries
 
 
-@pytest.mark.parametrize("nsub", [1, 2, 4])
-def test_work_count_equals_a_brute_count(nsub):
+def _random_lists(nsub):
+    """(row_ptr, col2d, nsub, n, L, slots, dim) of a random CSR."""
     rng = np.random.default_rng(nsub)
     n, L, dmax = 1000, 5, 9
     g = 1 << L
@@ -134,12 +140,40 @@ def test_work_count_equals_a_brute_count(nsub):
             blk = rng.integers(0, gb + 1)          # gb: the sentinel
             mask = rng.integers(1, 1 << nsub)
             col2d[t, k] = blk | (mask << (32 - nsub))
-    col2d = col2d.view(np.int32)
+    return row_ptr, col2d.view(np.int32), nsub, n, L, 32, 3
+
+
+def _fmm2_kd_lists():
+    """(row_ptr, col2d, nsub, n, L, slots, dim) of the near lists the
+    program's fmm2_kd engine builds for the tiny 2D cell's KV beam, with
+    the sub-leaves' particle counts as its pad mask gives them (the real
+    slots the dim-2 kernel reads)."""
+    from benchmark.tests.conftest import KD2
+    from coulomb_oscillators_tpu_torch import SimConfig
+    from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import KdFmmEngine
+    n = 2000
+    pos, _ = B.kv(n, KD2["beam"]["A"], KD2["beam"]["omega"], 5)
+    cfg = SimConfig(**{k: tuple(v) if isinstance(v, list) else v
+                       for k, v in KD2["sim"].items()})
+    eng = KdFmmEngine(cfg, n)
+    fs = eng.build(torch.from_numpy(pos))
+    real = eng.mask3("cpu").sum(1).numpy()
+    np.testing.assert_array_equal(real, W.subleaf_counts(n, eng.L))
+    assert eng.nsub > 1 and fs.p2p_col2d.shape[0] == 1 << eng.L
+    return (fs.p2p_row_ptr.numpy(), fs.p2p_col2d.numpy(), eng.nsub, n,
+            eng.L, eng.st.C, eng.dim)
+
+
+@pytest.mark.parametrize("nsub", [1, 2, 4, "fmm2_kd"])
+def test_work_count_equals_a_brute_count(nsub):
+    row_ptr, col2d, nsub, n, L, slots, dim = (
+        _fmm2_kd_lists() if nsub == "fmm2_kd" else _random_lists(nsub))
+    g = 1 << L
     got = W.p2p_work(torch.from_numpy(row_ptr), torch.from_numpy(col2d),
-                     nsub, n, L, slots=32)
+                     nsub, n, L, slots=slots, dim=dim)
     pairs, entries = _brute(row_ptr, col2d, nsub, n, L)
-    assert (got["pairs"], got["entries"]) == (pairs, entries)
-    assert got["bytes"] == 2 * g * 32 * 3 * 4 + 4 * (entries + g + 1)
+    assert (got["pairs"], got["entries"]) == (pairs, entries) != (0, 0)
+    assert got["bytes"] == 2 * g * slots * dim * 4 + 4 * (entries + g + 1)
 
 
 def test_subleaf_counts_split_evenly():
@@ -176,6 +210,25 @@ def test_trace_summary_unions_device_time_and_labels_gaps(monkeypatch):
     monkeypatch.setattr(T, "_events", lambda prof: ev[:3])
     with pytest.raises(RuntimeError, match="no kernel"):
         T.summarize(None)
+
+
+def test_trace_counts_the_dim2_p2p_kernel(monkeypatch):
+    """``p2p2d_kernel`` counts as P2P beside ``p2p_kernel``, and nothing
+    else does: a 3D trace, which holds no ``p2p2d_kernel``, reads as
+    before."""
+    ev = [("user_annotation", "bench.window", 0.0, 100.0),
+          ("kernel", "void p2p2d_kernel<float>(float const*, int)", 5.0,
+           4.0),
+          ("kernel", "void p2p2d_kernel<float>(float const*, int)", 20.0,
+           6.0),
+          ("kernel", "void p2p_kernel<float, true>(...)", 30.0, 10.0),
+          ("kernel", "p2p_plan_cumsum", 50.0, 2.0),
+          ("gpu_memcpy", "Memcpy HtoD (p2p2d_kernel)", 60.0, 1.0)]
+    monkeypatch.setattr(T, "_events", lambda prof: ev)
+    s = T.summarize(None)
+    assert s["p2p_count"] == 3 and s["p2p_ms"] == pytest.approx(0.02)
+    assert s["other_ms"] == pytest.approx(0.003)
+    assert s["busy_s"] == pytest.approx(23e-6)
 
 
 def test_the_trace_has_one_source_of_events():
@@ -235,6 +288,34 @@ def test_the_seed_reorders_one_draw():
     t = B.targets(5000, 100, 9)
     assert len(set(t.tolist())) == 100
     np.testing.assert_array_equal(B.targets(50, 100, 9), np.arange(50))
+
+
+def test_the_seed_reorders_one_kv_draw():
+    A, omega = (0.0018633884990322802, 0.0011320074052916915), (34.56, 31.21)
+    p1, v1 = B.kv(5000, A, omega, 2 ** 31 + 3)
+    p1b, v1b = B.kv(5000, A, omega, 2 ** 31 + 3)
+    p2, v2 = B.kv(5000, A, omega, -7)
+    assert p1.shape == v1.shape == (5000, 2) and p1.dtype == np.float32
+    np.testing.assert_array_equal(p1, p1b)
+    np.testing.assert_array_equal(v1, v1b)
+    assert not np.array_equal(p1, p2)
+    o1, o2 = np.lexsort(p1.T), np.lexsort(p2.T)
+    np.testing.assert_array_equal(p1[o1], p2[o2])
+    np.testing.assert_array_equal(v1[o1], v2[o2])
+    for a, rms in ((p1, np.array(A) / 2),
+                   (v1, np.array(omega) * np.array(A) / 2)):
+        a = a.astype(np.float64)
+        np.testing.assert_allclose(np.sqrt((a ** 2).mean(0)), rms,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(a.mean(0), 0, atol=1e-9)
+    # a KV beam fills its ellipse, (x / A_x)^2 + (y / A_y)^2 <= 1, up to
+    # the few per cent of the exact rms rescale (a Gaussian of the same
+    # rms reaches 4 and more)
+    x = p1.astype(np.float64) / np.array(A)
+    assert 0.9 < (x ** 2).sum(1).max() <= 1.1
+    # its own stream: not the Gaussian's draw
+    g, _ = B.gaussian(5000, np.array(A) / 2, (1.0, 1.0), 2 ** 31 + 3)
+    assert not np.array_equal(np.lexsort(g.T), o1)
 
 
 def test_forbidden_names_compare_whole_top_level_names(monkeypatch):

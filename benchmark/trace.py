@@ -13,7 +13,7 @@ read:
   ``busy_s``: the union of the device's intervals (kernels, copies,
       memsets) inside it, so overlapping work counts once;
   ``p2p_ms`` / ``p2p_count``: the summed duration and number of the P2P
-      kernel's instances (``p2p_kernel``);
+      kernels' instances (``p2p_kernel`` in 3D, ``p2p2d_kernel`` in 2D);
   ``other_ms``: every other device interval's duration, summed;
   ``device_ops``: the ten device operations that took most time;
   ``idle_gaps``: the ten longest gaps between device intervals, each named
@@ -33,7 +33,7 @@ import time
 import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-P2P_KERNEL = "p2p_kernel"
+P2P_KERNELS = ("p2p_kernel", "p2p2d_kernel")
 WINDOW = "bench.window"
 NAME_CHARS = 96
 
@@ -151,7 +151,7 @@ def summarize(prof) -> dict:
     p2p_count = 0
     for a, b, name, cat in dev:
         ms = (b - a) / 1e3
-        if cat == "kernel" and P2P_KERNEL in name:
+        if cat == "kernel" and any(k in name for k in P2P_KERNELS):
             p2p_ms += ms
             p2p_count += 1
         else:
