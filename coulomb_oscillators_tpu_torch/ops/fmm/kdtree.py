@@ -745,6 +745,10 @@ class KdFmmEngine:
                                       side="left").astype(np.int32)
             degrees = np.diff(row_ptr)
             dmax = int(degrees.max()) if degrees.size else 1
+            if P.recording():
+                P.count("kd.lists.near_entries", int(p2p.shape[0]))
+                P.count("kd.lists.near_rows", G)
+                P.count("kd.lists.near_row_max", dmax)
             # first sizing even for an empty list (coll=False): the CSR and
             # col2d are built on every device
             if "dmax" not in self.caps or dmax > self.caps["dmax"]:

@@ -46,6 +46,10 @@ The names recorded, and the per-layer metric each serves:
   ``kd.device_build``, ``kd.traverse``, ``kd.lists``, ``kd.upload``,
   ``kd.m2l_fold``, ``kd.refresh.geom_dev``, ``kd.refresh.geom_host``: the
   host rebuild (``ops/fmm/kdtree.py``, mostly on the rebuild thread);
+  ``kd.lists.near_entries``, ``kd.lists.near_rows``,
+  ``kd.lists.near_row_max``: counters of each list build, its near (P2P)
+  entries, sub-leaf rows and longest row's entries
+  (``near_entries_per_row``);
   ``graph.capture``, ``graph.copy_frozen``, ``graph.replay``: the step
   graph (``utils/graphs.py``); ``io.write_state``: snapshot I/O;
   ``fmm.refresh``, ``fmm.upward``, ``fmm.m2l``, ``fmm.downward``,

@@ -155,6 +155,27 @@ def test_build_parts_keep_their_keys(beam, async_host, clean, recorded):
             == (3 if recorded else 0))
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+def test_list_builds_count_their_near_entries(beam, clean, tmp_path, dim):
+    """A build under ``profiling.trace`` counts its near (P2P) entries,
+    sub-leaf rows and longest row, as the built state's CSR holds them."""
+    engine = {2: "fmm2_kd", 3: "fmm3_kd"}[dim]
+    cfg = SimConfig(dim=dim, omega0=(1.095, 1.0, 1.0)[:dim], fmm_order=3,
+                    tree_radius=2.0, tree_steps=3)
+    sim = Simulator(cfg, N, engine=engine)
+    try:
+        with P.trace(str(tmp_path)):
+            fs = sim._fmm.build(torch.from_numpy(beam[0][:, :dim].copy()))
+    finally:
+        sim.close()
+    row_ptr = fs.p2p_row_ptr.numpy()
+    tot = P.totals()
+    assert tot["kd.lists.near_entries"]["count"] == row_ptr[-1] > 0
+    assert tot["kd.lists.near_rows"]["count"] == len(row_ptr) - 1
+    assert (tot["kd.lists.near_row_max"]["count"]
+            == np.diff(row_ptr).max() > 0)
+
+
 def _intervals(events, cat, names=None, tid=None):
     return sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                   if e.get("ph") == "X" and e.get("cat") == cat
