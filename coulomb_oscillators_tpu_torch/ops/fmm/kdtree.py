@@ -11,7 +11,11 @@ decisions bit for bit) and on the host for particles on the CPU (the
 native library, or the numpy ``_traverse_raw`` where the library is
 absent); the near field is resolved at sub-leaf granularity and
 computed on directed (target sub-leaf) x (source block) tiles with packed
-lane-group masks.
+lane-group masks.  The pair lists are laid out into the state's list
+fields (caps, grouped M2L, CSR, dense partner table) by one tensor
+implementation on the device the lists are on: a card's traversal leaves
+them on the card, where they are laid out on its side stream and never
+copied to the host (see :meth:`KdFmmEngine._lists_to_state`).
 
 One layout on every device and in both dims: C is always padded to the
 reference's lane quantum ``max(128 >> sub_depth, 8)`` and the per-sub-leaf
@@ -41,6 +45,7 @@ operand, optimization barriers and the three-program force split.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -109,22 +114,10 @@ class FmmState(NamedTuple):
     m2l_gtgt: torch.Tensor     # [Km/g] target heap index per group of g
 
 
-def _upload(a, device) -> torch.Tensor:
-    """Host array (or tensor) -> tensor on `device`.  CUDA uploads go
-    through pinned memory without blocking, so a background rebuild never
-    waits for the kernels queued ahead of it."""
-    if isinstance(a, torch.Tensor):
-        return a.to(device)
-    if torch.device(device).type == "cuda":
-        t = torch.from_numpy(np.array(a, order="C"))
-        return t.pin_memory().to(device, non_blocking=True)
-    return torch.tensor(a)
-
-
 def fmm_state_from_numpy(d: dict, device) -> FmmState:
     """FmmState from host arrays keyed by field name (a reference state's
     fields convert directly, stored-fold or fly-mode)."""
-    return FmmState(**{k: _upload(np.asarray(d[k]), device)
+    return FmmState(**{k: torch.from_numpy(np.array(d[k])).to(device)
                        for k in FmmState._fields})
 
 
@@ -172,17 +165,6 @@ def _heap_off(l: int) -> int:
     return (1 << l) - 1
 
 
-def _pad_pairs(pairs: np.ndarray, cap: int, dummy_tgt: int):
-    k = pairs.shape[0]
-    tgt = np.full(cap, dummy_tgt, dtype=np.int32)
-    src = np.zeros(cap, dtype=np.int32)
-    valid = np.zeros(cap, dtype=bool)
-    tgt[:k] = pairs[:, 0]
-    src[:k] = pairs[:, 1]
-    valid[:k] = True
-    return tgt, src, valid
-
-
 def _round_cap(k: int, quantum: int = 8192, headroom: float = 1.25) -> int:
     """Padded list capacity: headroom rounded to `quantum`."""
     return max(quantum, -(-int(k * headroom) // quantum) * quantum)
@@ -199,16 +181,114 @@ def _pick_chunk(K: int, target: int, mult: int = 1) -> int:
     return K // nch
 
 
-def _build_col2d(p2p: np.ndarray, row_ptr: np.ndarray, G: int, Gblk: int,
-                 dmax: int) -> np.ndarray:
-    """Dense per-target partner table [G, dmax] from the target-sorted
-    pair list; padding entries hold the sentinel block id Gblk (the twin
-    builds the same table with one device scatter)."""
-    col = np.full((G + 1, dmax), Gblk, np.int32)
-    tgt = p2p[:, 0].astype(np.int64)
-    ranks = np.clip(np.arange(tgt.shape[0]) - row_ptr[tgt], 0, dmax - 1)
-    col[tgt, ranks] = p2p[:, 1]
-    return col[:G]
+# --------------------------------------------------------------------------- #
+# List layout: the traversal's pair lists -> the state's list fields
+# --------------------------------------------------------------------------- #
+
+# list layouts by where they ran: on a card (the lists of the card's
+# traversal) or on the host (the native or numpy traversal's lists); a run
+# that must show where its layouts ran reads these
+device_layouts = 0
+host_layouts = 0
+
+
+def layout_sizes(m2l: torch.Tensor, near: torch.Tensor, Mheap: int, G: int,
+                 g: int):
+    """The layout's first half, on the device of the target-sorted lists
+    m2l [Km, 2] (heap target, source) and near [Q, 2] (target sub-leaf,
+    packed source block): (posn [Km] int64, each M2L entry's slot in the
+    grouped layout, where each target's run is padded to a multiple of g;
+    row_ptr [G + 1] int32, the near list's CSR; sizes [2] int64, the
+    grouped M2L length and the longest near row, what the caps need)."""
+    dev = m2l.device
+    tgt = m2l[:, 0].long().contiguous()
+    rp = torch.searchsorted(tgt, torch.arange(Mheap + 1, device=dev))
+    deg = rp[1:] - rp[:-1]
+    off = torch.cat([rp.new_zeros(1), torch.cumsum((deg + g - 1) // g * g,
+                                                   0)])
+    posn = torch.arange(tgt.shape[0], device=dev) + (off - rp)[tgt]
+    del tgt, deg, rp
+    ntgt = near[:, 0].long().contiguous()
+    row_ptr = torch.searchsorted(ntgt, torch.arange(G + 1, device=dev))
+    del ntgt
+    sizes = torch.stack([off[-1], (row_ptr[1:] - row_ptr[:-1]).max()])
+    return posn, row_ptr.to(torch.int32), sizes
+
+
+def layout_fill(m2l: torch.Tensor, near: torch.Tensor, posn: torch.Tensor,
+                row_ptr: torch.Tensor, Mheap: int, G: int, G_blk: int, g: int,
+                m2l_cap: int, p2p_cap: int, dmax: int) -> dict:
+    """The layout's second half, on the lists' device (:func:`layout_sizes`
+    gave `posn` and `row_ptr`): the state's list fields at their caps.
+    Pad slots hold the sentinels: target Mheap in the M2L list (and in
+    all-pad groups of ``m2l_gtgt``, a group's minimum target), target G in
+    the P2P list, block G_blk in the dense partner table ``p2p_col2d``
+    [G, dmax], built at its cap with one scatter; ungrouped lists (g = 1)
+    carry the reference's one-element ``m2l_gtgt``.  `posn` is the only
+    temporary of the M2L half, freed before the P2P fields are made."""
+    dev, i32 = m2l.device, torch.int32
+    m2l_t = torch.full((m2l_cap,), Mheap, dtype=i32, device=dev)
+    m2l_t.index_copy_(0, posn, m2l[:, 0].to(i32))
+    m2l_s = torch.zeros(m2l_cap, dtype=i32, device=dev).index_copy_(
+        0, posn, m2l[:, 1].to(i32))
+    m2l_v = torch.zeros(m2l_cap, dtype=torch.bool, device=dev).index_fill_(
+        0, posn, True)
+    del posn
+    m2l_gt = (m2l_t.view(-1, g).amin(dim=1) if g > 1
+              else torch.zeros(1, dtype=i32, device=dev))
+    q = near.shape[0]
+    p2p_t = torch.full((p2p_cap,), G, dtype=i32, device=dev)
+    p2p_t[:q] = near[:, 0]
+    p2p_s = torch.zeros(p2p_cap, dtype=i32, device=dev)
+    p2p_s[:q] = near[:, 1]
+    p2p_v = torch.zeros(p2p_cap, dtype=torch.bool, device=dev)
+    p2p_v[:q] = True
+    # each entry's flat slot in the table: its row, and its rank in the row
+    at = near[:, 0].to(torch.int64, copy=True)
+    at.mul_(dmax).sub_(row_ptr[near[:, 0].long()])
+    at.add_(torch.arange(q, device=dev))
+    col2d = torch.full((G, dmax), G_blk, dtype=i32, device=dev)
+    col2d.view(-1).index_copy_(0, at, near[:, 1].to(i32))
+    del at
+    return dict(m2l_tgt=m2l_t, m2l_src=m2l_s, m2l_valid=m2l_v,
+                m2l_gtgt=m2l_gt, p2p_tgt=p2p_t, p2p_src=p2p_s,
+                p2p_valid=p2p_v, p2p_row_ptr=row_ptr, p2p_col2d=col2d)
+
+
+def layout_stream(device):
+    """A context that makes `device`'s list-layout stream, the card
+    traversal's side stream (``traverse.side_stream``), this thread's
+    current stream; nothing on a CPU device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.stream(traverse.side_stream(device))
+
+
+def layout_event(device):
+    """An event after the work queued so far on `device`'s list-layout
+    stream (None on a CPU device)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(traverse.side_stream(device))
+    return ev
+
+
+def hand_over(tensors, event, device) -> None:
+    """Make the calling thread's current stream on `device` wait for
+    `event` (a :func:`layout_event`) without blocking the host, and mark
+    every CUDA tensor of `tensors` as used on that stream, so that the
+    caching allocator hands none of their blocks back to the layout stream
+    while this stream may still read them.  Nothing for event None."""
+    if event is None:
+        return
+    stream = torch.cuda.current_stream(device)
+    stream.wait_event(event)
+    for t in tensors:
+        if t.device.type == "cuda":
+            t.record_stream(stream)
 
 
 # --------------------------------------------------------------------------- #
@@ -486,6 +566,11 @@ class KdFmmEngine:
         self.stale_margin_abs = 0.0
         self._dev = {}
         self._card = None         # traverse.DeviceTraversal, at first use
+        # a card's pinned buffers: the staging of the host arrays a state
+        # takes (grow-only, reused once the copies of the last state ended)
+        # and the layout's two sizes
+        self._stage_buf = self._staged = self._sizes_h = None
+        self._stage_lock = threading.Lock()
 
     @property
     def G_sub(self) -> int:
@@ -521,9 +606,9 @@ class KdFmmEngine:
 
     # ---------------- build ----------------
     def build(self, pos: torch.Tensor) -> FmmState:
-        """Tree (re)build by `sort_mode`: the native kd sort, geometry and
-        traversal on the host, or a device builder and the host traversal;
-        lists uploaded to the device of `pos`."""
+        """Tree (re)build by `sort_mode`: the native kd sort and geometry
+        on the host, or a device builder; the traversal and the list
+        layout on the device of `pos` (the host's for a CPU tensor)."""
         if self.sort_mode in ("auto", "kd_native") and native.available():
             return self.adopt(self.build_host(pos, pos.device), pos.device)
         return self.adopt(self.build_device_async(pos), pos.device)
@@ -585,7 +670,8 @@ class KdFmmEngine:
         return (perm, inv, c_h, lam_h, m2l, p2p, bt)
 
     def adopt(self, built: tuple, device) -> FmmState:
-        """Upload a :meth:`build_host` result to `device`."""
+        """The state on `device` from a :meth:`build_host` result (its
+        lists laid out by :meth:`_lists_to_state`)."""
         perm, inv, c_h, lam_h, m2l, p2p, bt = built
         return self._lists_to_state(perm, inv, c_h, lam_h, m2l, p2p,
                                     dict(bt), device)
@@ -601,7 +687,9 @@ class KdFmmEngine:
         the native library the numpy ``_traverse_raw`` and
         :meth:`_fine_lists`, as in the reference; a card never falls back
         to the host: without the native library its tables raise.
-        Returns (m2l_directed, near), target-sorted host int64 arrays."""
+        Returns (m2l_directed, near), target-sorted: int32 tensors on a
+        card, made on its side stream (``traverse.DeviceTraversal.run``),
+        host int64 arrays otherwise."""
         global raw_traversals, native_traversals, device_traversals
         L, S = self.L, self.sub_depth
         lb_h, rb_h = self.inflated_bounds(lb_h, rb_h)
@@ -696,104 +784,158 @@ class KdFmmEngine:
 
     def _lists_to_state(self, perm, inv_perm, center, lam, m2l, p2p, bt,
                         device) -> FmmState:
-        """Pad pair lists to caps, build the grouped M2L layout and the P2P
-        CSR, upload, assemble FmmState (the twin's logic, with the CSR
-        always built)."""
-        with P.span("kd.lists", bt):
-            self.last_counts = {"m2l": int(m2l.shape[0]),
-                                "p2p": int(p2p.shape[0])}
-            Mheap = _heap_off(self.L + 1)
-            g = self.m2l_group
-            # grouped layout: each target's (sorted, contiguous) entry run is
-            # padded to a multiple of g; caps["m2l"] tracks the grouped length
-            tgt = m2l[:, 0].astype(np.int64)
-            deg = np.bincount(tgt, minlength=Mheap)
-            pdeg = -(-deg // g) * g
-            off = np.zeros(Mheap + 1, np.int64)
-            np.cumsum(pdeg, out=off[1:])
-            rp = np.zeros(Mheap + 1, np.int64)
-            np.cumsum(deg, out=rp[1:])
-            posn = np.arange(m2l.shape[0], dtype=np.int64)
-            posn += np.repeat(off[:-1] - rp[:-1], deg)
-            k2 = int(off[-1])
-            # caps: quantized, headroom, geometric overflow growth (the twin's
-            # policy; equal caps keep the state equal to the twin's)
-            for name, klen, q, hr in (("m2l", k2, M2L_CAP_QUANTUM, 1.08),
-                                      ("p2p", p2p.shape[0], 8192, 1.25)):
-                if klen > self.caps[name]:
-                    grown = -(-(self.caps[name] * 5 // 4) // q) * q
-                    self.caps[name] = max(_round_cap(klen, q, hr),
-                                          grown if self.caps[name] else 0)
-            if p2p.shape[0] > self.near_cap:
-                self.near_cap = min(self.caps["p2p"],
-                                    -(-int(p2p.shape[0] * 1.25) // 256) * 256)
-            G = self.G_sub
-            cap = self.caps["m2l"]
-            m2l_t = np.full(cap, Mheap, dtype=np.int32)
-            m2l_s = np.zeros(cap, dtype=np.int32)
-            m2l_v = np.zeros(cap, dtype=bool)
-            m2l_t[posn] = m2l[:, 0]
-            m2l_s[posn] = m2l[:, 1]
-            m2l_v[posn] = True
-            # group target = min over the group (pad slots carry the Mheap
-            # sentinel; all-pad tail groups stay at the sentinel); ungrouped
-            # lists (g = 1) carry the reference's one-element placeholder
-            m2l_gt = (m2l_t.reshape(-1, g).min(axis=1) if g > 1
-                      else np.zeros(1, dtype=np.int32))
-            p2p_t, p2p_s, p2p_v = _pad_pairs(p2p, self.caps["p2p"], G)
-            row_ptr = np.searchsorted(p2p[:, 0], np.arange(G + 1),
-                                      side="left").astype(np.int32)
-            degrees = np.diff(row_ptr)
-            dmax = int(degrees.max()) if degrees.size else 1
-            if P.recording():
-                P.count("kd.lists.near_entries", int(p2p.shape[0]))
-                P.count("kd.lists.near_rows", G)
-                P.count("kd.lists.near_row_max", dmax)
-            # first sizing even for an empty list (coll=False): the CSR and
-            # col2d are built on every device
-            if "dmax" not in self.caps or dmax > self.caps["dmax"]:
-                grown = self.caps.get("dmax", 0) * 5 // 4
-                dmax = max(128, -(-max(int(dmax * 1.25), grown) // 128) * 128)
-                self.caps["dmax"] = dmax
-            dmax = self.caps["dmax"]
-            col2d = _build_col2d(p2p, row_ptr, G, self.G_blk, dmax)
-        with P.span("kd.upload", bt):
-            center_d = _upload(center, device).to(self.dtype)
+        """Lay the target-sorted pair lists out at their caps (the grouped
+        M2L layout, the P2P lists and CSR, the dense partner table: the
+        twin's logic, with the CSR always built) and assemble the FmmState
+        on `device`.
+
+        One implementation on either device (:func:`layout_sizes`,
+        :func:`layout_fill`): the lists of a card's traversal are laid out
+        on the card, on its side stream (:func:`layout_stream`), and never
+        leave it; host lists (numpy arrays) are laid out on the host, and
+        the fields moved to `device`.  The caps need two sizes, which a
+        card reads back in one small pinned copy: the layout's only wait
+        for the device.  Host arrays of perm, inv_perm, center and lam go
+        to a card through one grow-only pinned buffer, on the same stream.
+        A caller whose current stream is not that stream gets the state
+        handed over (:func:`hand_over`): its stream waits for the layout
+        without blocking the host.  Counted in ``device_layouts`` or
+        ``host_layouts``."""
+        global device_layouts, host_layouts
+        device = torch.device(device)
+        m2l, p2p = (x if isinstance(x, torch.Tensor)
+                    else torch.from_numpy(np.ascontiguousarray(x))
+                    for x in (m2l, p2p))
+        on_card = m2l.device.type == "cuda"
+        with layout_stream(device):
+            with P.span("kd.upload", bt):
+                perm, inv_perm, center, lam = self._stage(
+                    (perm, inv_perm, center, lam), device)
+                center, lam = center.to(self.dtype), lam.to(self.dtype)
+            t0 = time.perf_counter()
+            with P.span("kd.lists", bt):
+                fields = self._lay_out(m2l, p2p)
+                del m2l, p2p
+                fields = {k: v.to(device) for k, v in fields.items()}
             out = FmmState(
-                perm=_upload(perm, device), inv_perm=_upload(inv_perm, device),
-                center=center_d, lam=_upload(lam, device).to(self.dtype),
-                p2p_tgt=_upload(p2p_t, device), p2p_src=_upload(p2p_s, device),
-                p2p_valid=_upload(p2p_v, device),
-                m2l_tgt=_upload(m2l_t, device), m2l_src=_upload(m2l_s, device),
-                m2l_valid=_upload(m2l_v, device),
+                perm=perm, inv_perm=inv_perm, center=center, lam=lam,
                 # the reference's placeholders: fly mode folds in the loop
-                m2l_h2=center_d.new_zeros(1, 1), m2l_w=center_d.new_zeros(1),
-                m2l_logc=center_d.new_zeros(1),
-                p2p_row_ptr=_upload(row_ptr, device),
-                p2p_col2d=_upload(col2d, device),
-                m2l_gtgt=_upload(m2l_gt, device))
+                m2l_h2=center.new_zeros(1, 1), m2l_w=center.new_zeros(1),
+                m2l_logc=center.new_zeros(1), **fields)
+            ready = layout_event(device)
+        if ready is not None and (torch.cuda.current_stream(device)
+                                  != traverse.side_stream(device)):
+            hand_over(out, ready, device)
+        with _raw_lock:
+            if on_card:
+                device_layouts += 1
+            else:
+                host_layouts += 1
+        if on_card and P.recording():
+            P.count("kd.lists.device", 1, time.perf_counter() - t0)
         if not self.m2l_fly:
             with P.span("kd.m2l_fold", bt):
                 h2, w, logc = self._m2l_geo(out.center, out.lam, out.m2l_tgt,
                                             out.m2l_src, out.m2l_valid)
                 out = out._replace(m2l_h2=h2, m2l_w=w, m2l_logc=logc)
-                if center_d.device.type == "cuda":
+                if device.type == "cuda":
                     # the fold is queued on the calling thread's stream (the
                     # rebuild thread's, for a background rebuild); wait for it
                     # here, so that no consumer on any stream or thread adopts
                     # a fold that has not finished
                     done = torch.cuda.Event()
-                    done.record(torch.cuda.current_stream(center_d.device))
+                    done.record(torch.cuda.current_stream(device))
                     done.synchronize()
         self.last_build_times = bt
+        return out
+
+    def _lay_out(self, m2l: torch.Tensor, near: torch.Tensor) -> dict:
+        """The list fields of the state from the lists on their device:
+        the sizes, the caps (quantized, headroom, geometric overflow
+        growth: the twin's policy, so that the state stays equal to the
+        twin's and the shapes change at the same builds), then the
+        fields."""
+        self.last_counts = {"m2l": int(m2l.shape[0]),
+                            "p2p": int(near.shape[0])}
+        Mheap, G, g = _heap_off(self.L + 1), self.G_sub, self.m2l_group
+        posn, row_ptr, sizes = layout_sizes(m2l, near, Mheap, G, g)
+        if sizes.device.type == "cuda":
+            if self._sizes_h is None:
+                self._sizes_h = torch.empty(2, dtype=torch.int64,
+                                            pin_memory=True)
+            self._sizes_h.copy_(sizes, non_blocking=True)
+            got = torch.cuda.Event()
+            got.record()
+            got.synchronize()
+            sizes = self._sizes_h
+        k2, dmax = (int(x) for x in sizes.tolist())
+        q = near.shape[0]
+        for name, klen, quantum, hr in (("m2l", k2, M2L_CAP_QUANTUM, 1.08),
+                                        ("p2p", q, 8192, 1.25)):
+            if klen > self.caps[name]:
+                grown = -(-(self.caps[name] * 5 // 4) // quantum) * quantum
+                self.caps[name] = max(_round_cap(klen, quantum, hr),
+                                      grown if self.caps[name] else 0)
+        if q > self.near_cap:
+            self.near_cap = min(self.caps["p2p"],
+                                -(-int(q * 1.25) // 256) * 256)
+        if P.recording():
+            P.count("kd.lists.near_entries", q)
+            P.count("kd.lists.near_rows", G)
+            P.count("kd.lists.near_row_max", dmax)
+        # first sizing even for an empty list (coll=False): the CSR and
+        # col2d are built on every device
+        if "dmax" not in self.caps or dmax > self.caps["dmax"]:
+            grown = self.caps.get("dmax", 0) * 5 // 4
+            self.caps["dmax"] = max(
+                128, -(-max(int(dmax * 1.25), grown) // 128) * 128)
+        return layout_fill(m2l, near, posn, row_ptr, Mheap, G, self.G_blk, g,
+                           self.caps["m2l"], self.caps["p2p"],
+                           self.caps["dmax"])
+
+    def _stage(self, arrays, device) -> list:
+        """Host arrays (or tensors) as tensors on `device`.  Host arrays
+        bound for a card are copied into the engine's one grow-only pinned
+        buffer and from there on the current stream without blocking;
+        tensors already on `device` pass as they are."""
+        device = torch.device(device)
+        arrays = [a if isinstance(a, torch.Tensor)
+                  else np.ascontiguousarray(a) for a in arrays]
+        if device.type != "cuda":
+            return [a.to(device) if isinstance(a, torch.Tensor)
+                    else torch.from_numpy(a.copy()) for a in arrays]
+        host = [a for a in arrays if not isinstance(a, torch.Tensor)]
+        offs, nbytes = [], 0
+        for a in host:
+            offs.append(nbytes)
+            nbytes += -(-a.nbytes // 256) * 256
+        with self._stage_lock:
+            if self._staged is not None and not self._staged.query():
+                self._staged.synchronize()
+            if self._stage_buf is None or self._stage_buf.numel() < nbytes:
+                self._stage_buf = torch.empty(nbytes, dtype=torch.uint8,
+                                              pin_memory=True)
+            out = []
+            for a in arrays:
+                if isinstance(a, torch.Tensor):
+                    out.append(a.to(device))
+                    continue
+                o, t = offs.pop(0), torch.from_numpy(a)
+                h = self._stage_buf[o:o + a.nbytes].view(t.dtype).view(
+                    t.shape)
+                h.copy_(t)
+                out.append(h.to(device, non_blocking=True))
+            self._staged = torch.cuda.Event()
+            self._staged.record()
         return out
 
     def refresh(self, ppad: torch.Tensor, fs: FmmState,
                 perm=None, inv_perm=None) -> FmmState:
         """Exact geometry + pair-list rebuild for an existing padded
-        layout: node bounds/centers from on-device leaf stats, MAC
-        re-traversal on the host, lists re-uploaded.  Pass perm/inv_perm
-        when ppad was padded under a new permutation."""
+        layout: node bounds/centers from on-device leaf stats, the MAC
+        re-traversal (on the card for a card's `ppad`), the lists laid out
+        again.  Pass perm/inv_perm when ppad was padded under a new
+        permutation."""
         bt = {}
         with P.span("kd.refresh.geom_dev", bt):
             # [3, G, dim]

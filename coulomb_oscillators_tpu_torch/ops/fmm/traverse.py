@@ -37,9 +37,10 @@ returns, with plain tensor ops (sorts, a cumulative sum) on either device:
 
 :class:`DeviceTraversal` is what an engine keeps between its traversals on
 the card: a high-priority side stream of its own (the traversal waits on
-that stream alone, never on the windows queued on the main stream), the
-buffer sizes from the last traversal's counts x 1.3, and the pinned host
-buffer the lists come back through.
+that stream alone, never on the windows queued on the main stream) and
+the buffer sizes from the last traversal's counts x 1.3.  The lists stay
+on the card: the engine lays them out there, on the same stream
+(``KdFmmEngine._lists_to_state``).
 """
 
 from __future__ import annotations
@@ -316,22 +317,22 @@ def traverse(center: torch.Tensor, sz: torch.Tensor, pm2: torch.Tensor,
 class DeviceTraversal:
     """What one kd engine keeps between its traversals on the card (module
     docstring).  :meth:`run` takes the host geometry and tables and
-    returns host int64 lists, as ``native.traverse_fine`` does."""
+    returns the lists on the card, where the engine lays them out."""
 
     def __init__(self):
         self.caps = None          # buffer sizes (pairs) for the next run
-        self._host = None         # pinned int32 buffer, grow-only
         self._lock = threading.Lock()
 
     def run(self, center: np.ndarray, sz: np.ndarray, pm2: np.ndarray,
             L: int, S: int, coll: bool, device):
-        """(m2l [Kd, 2], near [Qb, 2]) host int64 arrays and the counts,
-        computed on `device` on its side stream.  The device scratch is
-        freed before this returns."""
+        """(m2l [Kd, 2], near [Qb, 2]) int32 tensors on `device` and the
+        counts, computed on the device's side stream (:func:`side_stream`):
+        their last kernels may still be queued there, so a reader on
+        another stream waits for that stream first.  The frontier's
+        buffers are freed before this returns."""
         device = torch.device(device)
         with self._lock, torch.cuda.device(device):
-            stream = side_stream(device)
-            with torch.cuda.stream(stream):
+            with torch.cuda.stream(side_stream(device)):
                 tab = torch.from_numpy(np.concatenate(
                     [np.ascontiguousarray(center, np.float32).reshape(-1),
                      sz, pm2])).to(device)
@@ -342,26 +343,10 @@ class DeviceTraversal:
                                            tab[c.numel() + M:], L, S, coll,
                                            caps)
                 del tab, c
-                kd, qb = m2l.shape[0], near.shape[0]
-                need = 2 * (kd + qb)
-                if self._host is None or self._host.numel() < need:
-                    self._host = torch.empty(int(need * HEADROOM),
-                                             dtype=torch.int32,
-                                             pin_memory=True)
-                h = self._host
-                h[:2 * kd].view(kd, 2).copy_(m2l, non_blocking=True)
-                h[2 * kd:need].view(qb, 2).copy_(near, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(stream)
-                del m2l, near
-            done.synchronize()
-            hn = h.numpy()
-            m2l_h = hn[:2 * kd].reshape(kd, 2).astype(np.int64)
-            near_h = hn[2 * kd:need].reshape(qb, 2).astype(np.int64)
         self.caps = {"front": max(1 << 16, int(info["largest"] * HEADROOM)),
                      "m2l": max(1 << 16, int(info["m2l"] * HEADROOM)),
                      "near": max(1 << 16, int(info["near"] * HEADROOM))}
-        return m2l_h, near_h, info
+        return m2l, near, info
 
 
 _streams = {}

@@ -54,9 +54,21 @@ import torch
 from coulomb_oscillators_tpu_torch.models import integrators as I
 from coulomb_oscillators_tpu_torch.ops.elastic import add_elastic
 from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda
-from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import (
-    FmmState, KdFmmEngine, _build_col2d)
+from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import (FmmState,
+                                                          KdFmmEngine)
 from coulomb_oscillators_tpu_torch.parallel.mesh import Mesh
+
+
+def _build_col2d(p2p: np.ndarray, row_ptr: np.ndarray, G: int, Gblk: int,
+                 dmax: int) -> np.ndarray:
+    """Dense per-target partner table [G, dmax] of a rank's CSR from its
+    target-sorted pair list; padding entries hold the sentinel block id
+    Gblk (the engine builds its own table with ``kdtree.layout_fill``)."""
+    col = np.full((G + 1, dmax), Gblk, np.int32)
+    tgt = p2p[:, 0].astype(np.int64)
+    ranks = np.clip(np.arange(tgt.shape[0]) - row_ptr[tgt], 0, dmax - 1)
+    col[tgt, ranks] = p2p[:, 1]
+    return col[:G]
 
 
 class PShardLists(NamedTuple):

@@ -10,7 +10,7 @@ the kernel's dim-2 instantiation.  For each case, on the same inflated
 node bounds: the native ``traverse_fine`` on the host
 (``KdFmmEngine._traverse`` without a device); the engine's card path end
 to end (``_traverse`` on the card: the native tables, their upload, the
-frontier, the device lists, the copy back into host int64 arrays); the
+frontier, the device lists, until its stream has ended them); the
 frontier alone (``traverse.frontier_cuda``, CUDA events, buffers already
 sized) beside its byte bound; the list step alone
 (``traverse.directed_lists``); with ``--plain`` the plain version
@@ -108,14 +108,19 @@ def run_case(name, reps, plain, dev):
 
     m2l_n, near_n = eng._traverse(c, lb, rb)
     native_s = _median_s(lambda: eng._traverse(c, lb, rb), reps)
-    eng._traverse(c, lb, rb, dev)                     # sizes the buffers
+    def card():
+        lists = eng._traverse(c, lb, rb, dev)
+        T.side_stream(dev).synchronize()
+        return lists
+
+    card()                                            # sizes the buffers
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
-    m2l_c, near_c = eng._traverse(c, lb, rb, dev)
+    m2l_c, near_c = card()
     scratch = torch.cuda.max_memory_allocated(dev) - before
-    card_s = _median_s(lambda: eng._traverse(c, lb, rb, dev), reps)
-    m2l_c, near_c = eng._traverse(c, lb, rb, dev)
+    card_s = _median_s(card, reps)
+    m2l_c, near_c = (x.cpu().numpy().astype(np.int64) for x in card())
     same = (np.array_equal(near_c, near_n)
             and np.array_equal(m2l_c, _sorted(m2l_n)))
 

@@ -17,6 +17,12 @@ main3.cu:832-874).  Three paths:
     host builder, or with ``tree_async_build="device"`` by the device
     builders.
 
+On a card a rebuild job runs with the card's list-layout stream current
+(``kdtree.layout_stream``, the traversal's side stream), so that its
+device work runs beside the queued windows, and hands back an event after
+its last kernel; the adopting thread's stream waits on that event before
+the repad and the next replay (:meth:`Simulator._wait`).
+
 Each path's `k` steps are one step body run `k` times.  On CUDA tensors the
 body is captured once as a CUDA graph and replayed `k` times
 (``utils/graphs.py``), the twin of the reference's jitted ``fori_loop``; the
@@ -65,6 +71,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import os
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -126,6 +133,23 @@ class _HostCopy:
         if self._done is not None:
             self._done.synchronize()
         return self._buf.numpy()
+
+
+class _Done(NamedTuple):
+    """A rebuild job's result: its value, the event after its last kernel
+    on the list-layout stream (None on a CPU), and the device."""
+    value: object
+    ready: Optional[torch.cuda.Event]
+    device: torch.device
+
+
+def _tensors(x):
+    """The tensors of a (nested) tuple of tensors."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, tuple):
+        for y in x:
+            yield from _tensors(y)
 
 
 class Simulator:
@@ -421,10 +445,10 @@ class Simulator:
             self._padded = self._pad_state(cur)
         with P.span("sim.boundary.submit"):
             pos_h = _HostCopy(cur.pos)
-            self._pending = self._executor().submit(P.carry(
+            self._pending = self._executor().submit(self._job(
                 lambda: eng.adopt(
                     eng.build_host(torch.from_numpy(pos_h.numpy()), device),
-                    device)))
+                    device), device))
 
     def _rebuild_padded(self) -> None:
         """Window-boundary rebuild of the padded state.
@@ -465,9 +489,10 @@ class Simulator:
                                                self._fstate)
                 self.rebuilds["sync_refresh"] += 1
             with P.span("sim.boundary.submit"):
-                self._pending = self._executor().submit(P.carry(
+                self._pending = self._executor().submit(self._job(
                     lambda p=cur.pos: eng.adopt(eng.build_device_async(p),
-                                                device)))
+                                                device), device,
+                    after_window=True))
             return
 
         D = max(1, int(self.config.tree_pipeline))
@@ -509,12 +534,14 @@ class Simulator:
             def job(ppad_h, inv_h, prev=prev, fs_cur=fs_cur):
                 fs_new = eng.adopt(eng.build_host_padded(
                     ppad_h.numpy(), inv_h.numpy(), device), device)
-                fs_old = prev.result()[0] if prev is not None else fs_cur
+                fs_old = (prev.result().value[0] if prev is not None
+                          else fs_cur)
                 return fs_new, eng.make_repad(fs_old, fs_new)
 
             with P.span("sim.boundary.submit"):
                 fut = self._executor().submit(
-                    P.carry(job), _HostCopy(ppad), _HostCopy(fs_cur.inv_perm))
+                    self._job(job, device), _HostCopy(ppad),
+                    _HostCopy(fs_cur.inv_perm))
             self._last_full = fut
             self._pqueue.append((i + D, "full", fut))
         elif (i + 1 - D) % K != 0:
@@ -524,17 +551,44 @@ class Simulator:
                 return eng.refresh(ppad, fs_cur)
 
             with P.span("sim.boundary.submit"):
-                fut = self._executor().submit(P.carry(rjob))
+                fut = self._executor().submit(
+                    self._job(rjob, device, after_window=True))
             self._pqueue.append((i + 1, "refresh", fut))
 
+    def _job(self, fn, device, after_window: bool = False):
+        """`fn` as a rebuild job for the worker thread.  On a card it runs
+        with the list-layout stream current (``kdtree.layout_stream``),
+        after the window work queued so far where `after_window` says that
+        it reads the window's tensors; it returns a :class:`_Done` whose
+        event follows its last kernel there."""
+        from coulomb_oscillators_tpu_torch.ops.fmm import kdtree
+        device = torch.device(device)
+        queued = None
+        if after_window and device.type == "cuda":
+            queued = torch.cuda.Event()
+            queued.record(torch.cuda.current_stream(device))
+
+        def job(*args):
+            with kdtree.layout_stream(device):
+                if queued is not None:
+                    torch.cuda.current_stream(device).wait_event(queued)
+                value = fn(*args)
+                return _Done(value, kdtree.layout_event(device), device)
+
+        return P.carry(job)
+
     def _wait(self, fut):
-        """A rebuild job's result; the wait is timed (``sim.boundary.wait``
-        and :attr:`rebuild_wait_total`)."""
+        """A rebuild job's result, handed over to this thread's stream
+        (``kdtree.hand_over``: the stream waits for the job's last kernel
+        and its tensors are marked as used here); the wait is timed
+        (``sim.boundary.wait`` and :attr:`rebuild_wait_total`)."""
+        from coulomb_oscillators_tpu_torch.ops.fmm import kdtree
         t = {}
         with P.span("sim.boundary.wait", t, "s"):
-            res = fut.result()
+            done = fut.result()
         self._waited(t["s"])
-        return res
+        kdtree.hand_over(_tensors(done.value), done.ready, done.device)
+        return done.value
 
     def _waited(self, seconds: float) -> None:
         self.last_rebuild_wait = seconds

@@ -15,8 +15,12 @@ Simulator at N = 100k runs every traversal on the card and none on the
 host.  The same tree with card lists and with native lists: the P2P pass
 bitwise equal (the near lists are equal), the force within float32
 reordering of the M2L sums (the M2L entries of a target come in another
-order).
+order).  A Simulator at 16/2/2 and at 8/1/1 lays every list out on the
+card, from lists that never leave it, into states equal to the host's
+layout of the native lists of the same positions.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -72,6 +76,14 @@ def _sorted(m2l):
     return m2l[np.lexsort((m2l[:, 1], m2l[:, 0]))]
 
 
+def _host(lists, cuda):
+    """A card traversal's lists (int32 on the card, made on its side
+    stream) as host int64 arrays."""
+    assert all(x.device == cuda and x.dtype == torch.int32 for x in lists)
+    torch.cuda.synchronize(cuda)
+    return tuple(x.cpu().numpy().astype(np.int64) for x in lists)
+
+
 @pytest.mark.parametrize("n,kw", [(1_000_000, BEAM_1M), (30001, CLI_30K),
                                   (1_000_000, KD2), (30001, KD2)],
                          ids=["beam_1m", "cli_30001", "kd2_1m", "kd2_30001"])
@@ -80,18 +92,17 @@ def test_card_lists_equal_native(cuda, n, kw):
     nat0, dev0 = kdtree.native_traversals, kdtree.device_traversals
     m2l_n, near_n = eng._traverse(c, lb, rb)
     launches, reruns = traverse.launches, traverse.reruns
-    m2l_c, near_c = eng._traverse(c, lb, rb, cuda)
+    m2l_c, near_c = _host(eng._traverse(c, lb, rb, cuda), cuda)
     assert kdtree.native_traversals == nat0 + 1
     assert kdtree.device_traversals == dev0 + 1
     # one launch a level, at most 2L + 1 levels a run
     runs = 1 + traverse.reruns - reruns
     assert runs <= traverse.launches - launches <= runs * (2 * eng.L + 1)
-    assert m2l_c.dtype == np.int64 and near_c.dtype == np.int64
     assert near_c.shape[0] > 0 and np.array_equal(near_c, near_n)
     assert m2l_c.shape[0] > 0 and np.array_equal(m2l_c, _sorted(m2l_n))
     # a second traversal reuses the sizes the first one found: no rerun
     reruns = traverse.reruns
-    m2l_2, near_2 = eng._traverse(c, lb, rb, cuda)
+    m2l_2, near_2 = _host(eng._traverse(c, lb, rb, cuda), cuda)
     assert traverse.reruns == reruns
     assert np.array_equal(m2l_2, m2l_c) and np.array_equal(near_2, near_c)
 
@@ -149,3 +160,140 @@ def test_force_with_card_lists(cuda):
     mask = eng.mask3(cuda)
     err = float((a - b)[mask].abs().max() / b[mask].abs().max())
     assert err <= FORCE_REORDER_TOL, err
+
+
+@pytest.mark.parametrize("cadence", [(16, 2, 2), (8, 1, 1)],
+                         ids=["16-2-2", "8-1-1"])
+def test_simulator_lays_out_lists_on_the_card(cuda, monkeypatch, cadence):
+    """A Simulator at N = 100k with the 1M cell's order and radius, at the
+    production cadence 16/2/2 and the upstream's 8/1/1: every list layout
+    runs on the card (``device_layouts`` counts one a traversal, none on
+    the host) from lists that never left it, with one wait for the device
+    (the sizes' read-back) and no ``pin_memory()``; only perm, inv_perm,
+    center and lam cross from the host.  Each full re-sort's state equals
+    the state laid out on the host from the native traversal of the same
+    positions (the M2L sources after a sort within each target's run);
+    the near-list counters record what the states hold; and a window
+    adopted while the main stream still holds the last window's replays
+    computes the force an eager step computes on the same state."""
+    from coulomb_oscillators_tpu_torch.utils import profiling as P
+    ts, K, D = cadence
+    n = 100_000
+    cfg = SimConfig(**dict(BEAM_1M, tree_steps=ts, tree_resort_every=K,
+                           tree_pipeline=D))
+    u = tuple(w * x for w, x in zip(cfg.omega0, X_STD))
+    pos, vel = ID.init_gaussian(n, X_STD, u)
+    active = [True]
+    tls = __import__("threading").local()
+    layouts, staged, pinned, waits = [], [], [], []
+    real = {k: getattr(KdFmmEngine, k) for k in
+            ("_lists_to_state", "build_host_padded", "_stage")}
+    real_sync = torch.cuda.Event.synchronize
+
+    def spy_bhp(self, ppad_h, inv_h, device):
+        tls.src = (np.array(ppad_h), np.array(inv_h))
+        return real["build_host_padded"](self, ppad_h, inv_h, device)
+
+    def spy_l2s(self, perm, inv, c, lam, m2l, near, bt, device):
+        if not active[0]:
+            return real["_lists_to_state"](self, perm, inv, c, lam, m2l,
+                                           near, bt, device)
+        assert isinstance(m2l, torch.Tensor) and m2l.device == cuda
+        assert isinstance(near, torch.Tensor) and near.device == cuda
+        src, tls.src = getattr(tls, "src", None), None
+        tls.waits, tls.staged = 0, []
+        fs = real["_lists_to_state"](self, perm, inv, c, lam, m2l, near, bt,
+                                     device)
+        waits.append(tls.waits)
+        staged.append(tls.staged)
+        tls.waits = tls.staged = None
+        layouts.append((fs, src, dict(self.caps), self.near_cap))
+        return fs
+
+    def spy_stage(self, arrays, device):
+        if getattr(tls, "staged", None) is not None:
+            tls.staged += [tuple(a.shape) for a in arrays
+                           if not isinstance(a, torch.Tensor)]
+        return real["_stage"](self, arrays, device)
+
+    def spy_sync(ev):
+        if getattr(tls, "waits", None) is not None:
+            tls.waits += 1
+        return real_sync(ev)
+
+    monkeypatch.setattr(KdFmmEngine, "build_host_padded", spy_bhp)
+    monkeypatch.setattr(KdFmmEngine, "_lists_to_state", spy_l2s)
+    monkeypatch.setattr(KdFmmEngine, "_stage", spy_stage)
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", spy_sync)
+    monkeypatch.setattr(torch.Tensor, "pin_memory",
+                        lambda t, *a, **k: pinned.append(t.shape))
+    # the counters record as under a profiler
+    monkeypatch.setattr(P, "_tracing", 1)
+    P.reset()
+    dev0, host0 = kdtree.device_layouts, kdtree.host_layouts
+    trav0 = kdtree.device_traversals
+    sim = Simulator(cfg, n, engine="fmm3_kd")
+    eng = sim._fmm
+    checked, prev_checked = 0, False
+    try:
+        sim.init_acc(particle_state_from_numpy(pos, vel, device=cuda))
+        sim.advance_padded(ts)
+        for _ in range(8):
+            before = sim.rebuilds["adopt_full"]
+            sim.advance_padded(ts)
+            if sim.rebuilds["adopt_full"] > before and not prev_checked:
+                # the adoption came while the last window was queued
+                a = sim._padded.acc
+                b = sim._padded_force(sim._padded.pos, sim._fstate)
+                mask = eng.mask3(cuda)
+                err = float((a - b)[mask].abs().max() / b[mask].abs().max())
+                assert err <= FORCE_REORDER_TOL, err
+                checked += 1
+                prev_checked = True
+            else:
+                prev_checked = False
+        torch.cuda.synchronize()
+    finally:
+        sim.close()
+    active[0] = False
+    tot = P.totals()
+    P.reset()
+    assert checked >= 3
+    assert sim.rebuilds["adopt_full"] >= 3
+    nlay = kdtree.device_layouts - dev0
+    assert nlay == len(layouts) == kdtree.device_traversals - trav0
+    assert kdtree.host_layouts == host0
+    assert tot["kd.lists.device"]["count"] == nlay
+    assert waits == [1] * nlay
+    assert pinned == []
+    # the set-up's build and the full re-sorts stage all four; a refresh
+    # keeps the permutation already on the card
+    Mheap = (1 << (eng.L + 1)) - 1
+    assert staged == [[(n,), (n,), (Mheap, 3), (Mheap,)]
+                      if src is not None or i == 0 else [(Mheap, 3), (Mheap,)]
+                      for i, (_, src, _, _) in enumerate(layouts)]
+    rows = [fs.p2p_row_ptr.cpu().numpy() for fs, _, _, _ in layouts]
+    assert tot["kd.lists.near_entries"]["count"] == sum(
+        int(r[-1]) for r in rows)
+    assert tot["kd.lists.near_rows"]["count"] == nlay * eng.G_sub
+    assert tot["kd.lists.near_row_max"]["count"] == sum(
+        int(np.diff(r).max()) for r in rows)
+    full = [x for x in layouts if x[1] is not None]
+    assert len(full) >= sim.rebuilds["adopt_full"]
+    for fs, (ppad_h, inv_h), caps, near_cap in full:
+        host = copy.copy(eng)
+        host.caps, host.near_cap, host._card = dict(caps), near_cap, None
+        built = host.build_host_padded(ppad_h, inv_h, "cpu")
+        ref = host.adopt(built, "cpu")
+        assert host.caps == caps
+        for f in ("perm", "inv_perm", "m2l_tgt", "m2l_valid", "m2l_gtgt",
+                  "p2p_tgt", "p2p_src", "p2p_valid", "p2p_row_ptr",
+                  "p2p_col2d"):
+            assert torch.equal(getattr(fs, f).cpu(), getattr(ref, f)), f
+        # the card's entries of a target come sorted by source, in the
+        # same slots
+        v = ref.m2l_valid.numpy()
+        t, s = ref.m2l_tgt.numpy()[v], ref.m2l_src.numpy()[v]
+        got = fs.m2l_src.cpu().numpy()
+        assert np.array_equal(got[v], s[np.lexsort((s, t))])
+        assert not got[~v].any()
