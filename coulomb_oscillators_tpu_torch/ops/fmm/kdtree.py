@@ -51,7 +51,6 @@ import functools
 import math
 import os
 import threading
-import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -610,15 +609,14 @@ class KdFmmEngine:
         on the host, or a device builder; the traversal and the list
         layout on the device of `pos` (the host's for a CPU tensor)."""
         if self.sort_mode in ("auto", "kd_native") and native.available():
-            return self.adopt(self.build_host(pos, pos.device), pos.device)
-        return self.adopt(self.build_device_async(pos), pos.device)
+            return self.build_host(pos, pos.device)
+        return self.build_device_async(pos)
 
-    def build_device_async(self, pos: torch.Tensor) -> tuple:
+    def build_device_async(self, pos: torch.Tensor) -> FmmState:
         """Rebuild with a device builder (the Morton sort, or the exact kd
         sort for sort_mode="kd_device"): the O(N) work runs on the device of
         `pos`, only the node geometry crosses to the host for the MAC
-        traversal, and perm/inv never leave the device.  Returns the
-        ingredients for :meth:`adopt`."""
+        traversal, and perm/inv never leave the device."""
         bt = {}
         with P.span("kd.device_build", bt):
             fn = (_build_device if self.sort_mode == "kd_device"
@@ -631,19 +629,19 @@ class KdFmmEngine:
         inv = torch.empty_like(perm)
         inv[perm.long()] = torch.arange(self.n, dtype=perm.dtype,
                                         device=perm.device)
-        return (perm, inv, center, lam, m2l, p2p, bt)
+        return self._lists_to_state(perm, inv, center, lam, m2l, p2p, bt)
 
-    def build_host(self, pos: torch.Tensor, device) -> tuple:
-        """The whole host side of a rebuild from original-order positions;
-        returns the ingredients for :meth:`adopt`.  `device` is where the
-        lists will live: a card there runs the traversal."""
+    def build_host(self, pos: torch.Tensor, device) -> FmmState:
+        """Rebuild with the native host builder from original-order
+        positions.  `device` is where the lists and the state will live: a
+        card there runs the traversal."""
         bt = {}
         with P.span("kd.fetch", bt):
             pos_h = pos.detach().to("cpu", torch.float32).numpy()
         return self._build_host_from(pos_h, bt, device)
 
     def build_host_padded(self, ppad_h: np.ndarray,
-                          inv_perm_old: np.ndarray, device) -> tuple:
+                          inv_perm_old: np.ndarray, device) -> FmmState:
         """:meth:`build_host` fed from a host copy of the PADDED positions
         and the inverse permutation they are padded under; `device` as
         there."""
@@ -657,7 +655,7 @@ class KdFmmEngine:
         return self._build_host_from(pos_h, bt, device)
 
     def _build_host_from(self, pos_h: np.ndarray, bt: dict,
-                         device) -> tuple:
+                         device) -> FmmState:
         with P.span("kd.sort", bt, "kd"):
             perm = native.kdtree_build(pos_h, self.L)
             inv = np.empty_like(perm)
@@ -667,14 +665,7 @@ class KdFmmEngine:
                                                           self.L)
         with P.span("kd.traverse", bt):
             m2l, p2p = self._traverse(c_h, lb_h, rb_h, device)
-        return (perm, inv, c_h, lam_h, m2l, p2p, bt)
-
-    def adopt(self, built: tuple, device) -> FmmState:
-        """The state on `device` from a :meth:`build_host` result (its
-        lists laid out by :meth:`_lists_to_state`)."""
-        perm, inv, c_h, lam_h, m2l, p2p, bt = built
-        return self._lists_to_state(perm, inv, c_h, lam_h, m2l, p2p,
-                                    dict(bt), device)
+        return self._lists_to_state(perm, inv, c_h, lam_h, m2l, p2p, bt)
 
     def _traverse(self, c_h, lb_h, rb_h, device=None):
         """Dual-granularity traversal with the temporal MAC slack (node
@@ -694,21 +685,16 @@ class KdFmmEngine:
         L, S = self.L, self.sub_depth
         lb_h, rb_h = self.inflated_bounds(lb_h, rb_h)
         if device is not None and torch.device(device).type == "cuda":
-            t0 = time.perf_counter()
             sz, pm2 = native.traverse_tables(
                 lb_h, rb_h, self.st.mult, L, S, self.n, self.dim, self.p,
                 float(self.config.tree_radius),
                 mult_floor=self.mac_mult_floor, sub_boost=self.mac_sub_boost)
             if self._card is None:
                 self._card = traverse.DeviceTraversal()
-            m2l_d, near, info = self._card.run(c_h, sz, pm2, L, S,
-                                               self.config.coll, device)
+            m2l_d, near, _ = self._card.run(c_h, sz, pm2, L, S,
+                                            self.config.coll, device)
             with _raw_lock:
                 device_traversals += 1
-            if P.recording():
-                P.count("kd.traverse.device", 1, time.perf_counter() - t0)
-                P.count("kd.traverse.device.levels", info["levels"])
-                P.count("kd.traverse.device.reruns", info["reruns"])
             return m2l_d, near
         if not native.available():
             with _raw_lock:
@@ -782,41 +768,37 @@ class KdFmmEngine:
         m2l_d = np.concatenate([m2l_u, m2l_u[:, ::-1]], axis=0)
         return near, m2l_d[np.argsort(m2l_d[:, 0], kind="stable")]
 
-    def _lists_to_state(self, perm, inv_perm, center, lam, m2l, p2p, bt,
-                        device) -> FmmState:
+    def _lists_to_state(self, perm, inv_perm, center, lam, m2l, p2p,
+                        bt) -> FmmState:
         """Lay the target-sorted pair lists out at their caps (the grouped
         M2L layout, the P2P lists and CSR, the dense partner table: the
         twin's logic, with the CSR always built) and assemble the FmmState
-        on `device`.
+        on the device the lists are on.
 
         One implementation on either device (:func:`layout_sizes`,
         :func:`layout_fill`): the lists of a card's traversal are laid out
         on the card, on its side stream (:func:`layout_stream`), and never
-        leave it; host lists (numpy arrays) are laid out on the host, and
-        the fields moved to `device`.  The caps need two sizes, which a
-        card reads back in one small pinned copy: the layout's only wait
-        for the device.  Host arrays of perm, inv_perm, center and lam go
-        to a card through one grow-only pinned buffer, on the same stream.
-        A caller whose current stream is not that stream gets the state
-        handed over (:func:`hand_over`): its stream waits for the layout
-        without blocking the host.  Counted in ``device_layouts`` or
-        ``host_layouts``."""
+        leave it; host lists (numpy arrays) are laid out on the host.  The
+        caps need two sizes, which a card reads back in one small pinned
+        copy: the layout's only wait for the device.  Host arrays of perm,
+        inv_perm, center and lam go to a card through one grow-only pinned
+        buffer, on the same stream.  A caller whose current stream is not
+        that stream gets the state handed over (:func:`hand_over`): its
+        stream waits for the layout without blocking the host.  Counted in
+        ``device_layouts`` or ``host_layouts``."""
         global device_layouts, host_layouts
-        device = torch.device(device)
         m2l, p2p = (x if isinstance(x, torch.Tensor)
                     else torch.from_numpy(np.ascontiguousarray(x))
                     for x in (m2l, p2p))
-        on_card = m2l.device.type == "cuda"
+        device = m2l.device
         with layout_stream(device):
             with P.span("kd.upload", bt):
                 perm, inv_perm, center, lam = self._stage(
                     (perm, inv_perm, center, lam), device)
                 center, lam = center.to(self.dtype), lam.to(self.dtype)
-            t0 = time.perf_counter()
             with P.span("kd.lists", bt):
                 fields = self._lay_out(m2l, p2p)
                 del m2l, p2p
-                fields = {k: v.to(device) for k, v in fields.items()}
             out = FmmState(
                 perm=perm, inv_perm=inv_perm, center=center, lam=lam,
                 # the reference's placeholders: fly mode folds in the loop
@@ -827,12 +809,10 @@ class KdFmmEngine:
                                   != traverse.side_stream(device)):
             hand_over(out, ready, device)
         with _raw_lock:
-            if on_card:
+            if device.type == "cuda":
                 device_layouts += 1
             else:
                 host_layouts += 1
-        if on_card and P.recording():
-            P.count("kd.lists.device", 1, time.perf_counter() - t0)
         if not self.m2l_fly:
             with P.span("kd.m2l_fold", bt):
                 h2, w, logc = self._m2l_geo(out.center, out.lam, out.m2l_tgt,
@@ -967,7 +947,7 @@ class KdFmmEngine:
         return self._lists_to_state(
             fs.perm if perm is None else perm,
             fs.inv_perm if inv_perm is None else inv_perm,
-            center, lam, m2l, p2p, bt, ppad.device)
+            center, lam, m2l, p2p, bt)
 
     def _leaf_stats(self, ppad: torch.Tensor):
         """Per-leaf (min, max, sum) over valid slots: 3 x [G, dim]."""

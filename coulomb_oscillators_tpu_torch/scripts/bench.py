@@ -310,6 +310,15 @@ class Bench:
         inv[perm] = np.arange(self.n, dtype=perm.dtype)
         return perm, inv, c_h, lb_h, rb_h, lam_h
 
+    def _state(self, eng, tree, m2l, p2p):
+        """The state of the host tree `tree` with the host traversal's
+        lists: the lists are copied to the bench's device and laid out
+        there."""
+        perm, inv, c_h, _, _, lam_h = tree
+        return eng._lists_to_state(
+            perm, inv, c_h, lam_h,
+            *(torch.from_numpy(x).to(self.device) for x in (m2l, p2p)), {})
+
     def _err(self, eng, fs) -> float:
         from coulomb_oscillators_tpu_torch.ops.reductions import mean_rel_err
         self.force_evals += 1
@@ -343,7 +352,7 @@ class Bench:
         from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR
         from coulomb_oscillators_tpu_torch.utils.timing import (
             test_time_chained)
-        perm, inv, c_h, lb_h, rb_h, lam_h = tree
+        c_h, lb_h, rb_h = tree[2:5]
         ppad = eng.pad_array(self.pos_d, fs, fill=FAR)
 
         def fpad(x):
@@ -354,8 +363,7 @@ class Bench:
         C.sync(self.device)
         t0 = time.perf_counter()
         m2l2, p2p2 = eng._traverse(c_h, lb_h, rb_h)
-        eng._lists_to_state(perm, inv, c_h, lam_h, m2l2, p2p2, {},
-                            self.device)
+        self._state(eng, tree, m2l2, p2p2)
         C.sync(self.device)
         row["rebuild_s"] = time.perf_counter() - t0
         return row
@@ -372,12 +380,11 @@ class Bench:
                                             mac_sub_boost=boost), self.n)
         eng.stale_margin_abs = self._bench_margin(cadence)
         tree = self._host_tree(eng)
-        perm, inv, c_h, lb_h, rb_h, lam_h = tree
+        c_h, lb_h, rb_h = tree[2:5]
         t0 = time.perf_counter()
         m2l, p2p = eng._traverse(c_h, lb_h, rb_h)
         t_trav = time.perf_counter() - t0
-        fs = eng._lists_to_state(perm, inv, c_h, lam_h, m2l, p2p, {},
-                                 self.device)
+        fs = self._state(eng, tree, m2l, p2p)
         row = {"p": p, "r": r, "boost": boost, "err": self._err(eng, fs)}
         row.update(self._counts(eng, fs, m2l, p2p))
         if row["err"] < ERR_BOUND:
@@ -399,7 +406,7 @@ class Bench:
                           self.n)
         eng.stale_margin_abs = self._bench_margin(cadence_of(DEFAULT_TUNED))
         tree = self._host_tree(eng)
-        perm, inv, c_h, lb_h, rb_h, lam_h = tree
+        c_h, lb_h, rb_h = tree[2:5]
         rows = []
         over_bound = 0
         for r in reversed(SEARCH_R):
@@ -413,8 +420,7 @@ class Bench:
                     t0 = time.perf_counter()
                     m2l, p2p = eng._traverse(c_h, lb_h, rb_h)
                     t_trav = time.perf_counter() - t0
-                    fs = eng._lists_to_state(perm, inv, c_h, lam_h, m2l,
-                                             p2p, {}, self.device)
+                    fs = self._state(eng, tree, m2l, p2p)
                     err = row["err"] = self._err(eng, fs)
                     if err < ERR_BOUND:
                         row.update(self._costs(eng, fs, tree))

@@ -174,7 +174,6 @@ class Simulator:
         self._fstate = None
         self._padded = None       # kd engine: ParticleState of [G, C, dim]
                                   # (mesh mode: this rank's [G/P, C, dim])
-        self._pending = None      # in-flight device (or mesh-mode) rebuild
         self._mesh = mesh
         self._ps = None           # PShardedKdFmm when mesh is set
         if not (engine.startswith("fmm") or engine == "appel"):
@@ -188,7 +187,7 @@ class Simulator:
         self._fmm = fmm_mod.make_engine_object(config, n, engine)
         self._steps_since_build = 0
         self._last_out = None
-        # host-async rebuild pipeline: queue of (due_boundary, kind, future)
+        # the async rebuild pipeline: queue of (due_boundary, kind, future)
         self._pqueue = collections.deque()
         self._boundary_i = 0
         self._last_full = None
@@ -283,12 +282,16 @@ class Simulator:
         rank's shard of them)."""
         from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR
         eng, fs = self._fmm, self._fstate
-        out = ParticleState(eng.pad_array(state.pos, fs, fill=FAR),
-                            eng.pad_array(state.vel, fs),
-                            eng.pad_array(state.acc, fs))
-        if self._ps is not None:
-            out = ParticleState(*(self._ps.shard_padded(x) for x in out))
-        return out
+        return self._shard(ParticleState(
+            eng.pad_array(state.pos, fs, fill=FAR),
+            eng.pad_array(state.vel, fs), eng.pad_array(state.acc, fs)))
+
+    def _shard(self, full: ParticleState) -> ParticleState:
+        """The padded state of all leaves as this rank holds it: all of it,
+        or in mesh mode this rank's shard."""
+        if self._ps is None:
+            return full
+        return ParticleState(*(self._ps.shard_padded(x) for x in full))
 
     def _set_fstate(self, fstate) -> None:
         """Adopt a tree; mesh mode regroups its pair lists for the ranks
@@ -352,7 +355,7 @@ class Simulator:
         # a state we did not hand out (or a cold start) enters padded form
         if (self._padded is None or self._fstate is None
                 or state is not self._last_out):
-            self._drop_pending()
+            self._drop_queue()
             self._set_fstate(self._fmm.build(state.pos))
             self._steps_since_build = 0
             self._padded = self._pad_state(state)
@@ -401,10 +404,7 @@ class Simulator:
         calls it to read the state a new window starts from."""
         if self._steps_since_build >= max(self.config.tree_steps, 1):
             with P.span("sim.boundary"):
-                if self._ps is not None:
-                    self._rebuild_psharded()
-                else:
-                    self._rebuild_padded()
+                self._rebuild_padded()
             self._steps_since_build = 0
 
     def current_state(self) -> ParticleState:
@@ -415,103 +415,57 @@ class Simulator:
         self._last_out = out
         return out
 
-    def _rebuild_psharded(self) -> None:
-        """Mesh-mode twin of :meth:`_rebuild_padded`, with the reference's
-        one-slot pipeline: adopt the background rebuild submitted at the
-        previous boundary (one window stale), or refresh bounds and lists
-        synchronously while the pipeline primes; regroup the lists for the
-        ranks; hand the next rebuild, from this boundary's positions, to
-        the worker.  Sync (or without the native library): a blocking
-        rebuild.  Every rank builds from the same gathered positions; the
-        worker thread calls no collective."""
-        eng = self._fmm
+    def _rebuild_padded(self) -> None:
+        """Window-boundary rebuild of the padded state (in mesh mode of all
+        ranks' leaves, gathered: every rank runs the same rebuild, and the
+        worker thread calls no collective).
+
+        Async (config.tree_async): a FULL re-sort, built in the background
+        from this boundary's positions, every K boundaries, adopted D
+        boundaries later through a composed old -> new padded-layout gather
+        (repad); a background REFRESH (exact bounds on the current
+        permutation) at the other boundaries, adopted at the next one.  The
+        first boundary primes the pipeline with a synchronous refresh.  The
+        full re-sort's builder is the device builder with
+        ``tree_async_build="device"`` (in one process), from the unpadded
+        positions on the device, and otherwise the native host builder, from
+        host copies of the padded positions and their permutation.  Sync (or
+        a host builder without the native library): the reference's blocking
+        rebuild."""
+        eng, cfg = self._fmm, self.config
         full = self._full_padded()
-        cur = self._unpad_state(full)
-        device = cur.pos.device
-        if not (self.config.tree_async and native.available()):
+        device = full.pos.device
+        on_device = cfg.tree_async_build == "device" and self._ps is None
+        if not cfg.tree_async or not (on_device or native.available()):
+            cur = self._unpad_state(full)
             self._set_fstate(eng.build(cur.pos))
             self._padded = self._pad_state(cur)
             self.rebuilds["sync_full"] += 1
             return
-        if self._pending is not None:
-            fstate = self._wait(self._pending)
-            self.rebuilds["adopt_full"] += 1
+        if on_device or self._ps is not None:
+            # K = D = 1, a full re-sort adopted at every boundary: the
+            # cadence of the reference's device builder and mesh mode,
+            # which ignore tree_resort_every and tree_pipeline
+            # (coulomb_oscillators_tpu/simulate.py:297-322, 394-405)
+            K = D = 1
         else:
-            with P.span("sim.boundary.refresh"):
-                fstate = eng.refresh(full.pos, self._fstate)
-            self.rebuilds["sync_refresh"] += 1
-        self._set_fstate(fstate)
-        with P.span("sim.boundary.repad"):
-            self._padded = self._pad_state(cur)
-        with P.span("sim.boundary.submit"):
-            pos_h = _HostCopy(cur.pos)
-            self._pending = self._executor().submit(self._job(
-                lambda: eng.adopt(
-                    eng.build_host(torch.from_numpy(pos_h.numpy()), device),
-                    device), device))
-
-    def _rebuild_padded(self) -> None:
-        """Window-boundary rebuild of the padded state.
-
-        Async (config.tree_async): a FULL re-sort (host kd + traversal from
-        a host copy of this boundary's positions) every `tree_resort_every`
-        (K) boundaries, adopted `tree_pipeline` (D) boundaries later through
-        a composed old -> new padded-layout gather (repad); a background
-        REFRESH (exact bounds on the current permutation) at the other
-        boundaries, adopted at the next one.  The first boundary primes the
-        pipeline with a synchronous refresh.  With
-        ``tree_async_build="device"`` each boundary instead adopts the
-        device rebuild submitted at the previous one (a refresh primes the
-        first).  Sync (or a host builder without the native library): the
-        reference's blocking rebuild."""
-        eng = self._fmm
-        device = self._padded.pos.device
-        use_device = self.config.tree_async_build == "device"
-        if not self.config.tree_async or not (use_device
-                                              or native.available()):
-            cur = self._unpad_state(self._padded)
-            self._fstate = eng.build(cur.pos)
-            self._padded = self._pad_state(cur)
-            self.rebuilds["sync_full"] += 1
-            return
-        if use_device:
-            # the job sorts on the device from original-order positions
-            # (unpad here, repad at adoption)
-            cur = self._unpad_state(self._padded)
-            if self._pending is not None:
-                self._fstate = self._wait(self._pending)
-                with P.span("sim.boundary.repad"):
-                    self._padded = self._pad_state(cur)
-                self.rebuilds["adopt_device"] += 1
-            else:
-                with P.span("sim.boundary.refresh"):
-                    self._fstate = eng.refresh(self._padded.pos,
-                                               self._fstate)
-                self.rebuilds["sync_refresh"] += 1
-            with P.span("sim.boundary.submit"):
-                self._pending = self._executor().submit(self._job(
-                    lambda p=cur.pos: eng.adopt(eng.build_device_async(p),
-                                                device), device,
-                    after_window=True))
-            return
-
-        D = max(1, int(self.config.tree_pipeline))
-        K = max(1, int(self.config.tree_resort_every))
+            K = max(1, int(cfg.tree_resort_every))
+            D = max(1, int(cfg.tree_pipeline))
         i = self._boundary_i
         self._boundary_i += 1
 
         if self._pqueue and self._pqueue[0][0] <= i:
             _, kind, fut = self._pqueue.popleft()
             res = self._wait(fut)
-            if kind == "full":
+            if kind == "refresh":
+                self._set_fstate(res)
+            else:
                 fs_new, remap = res
                 with P.span("sim.boundary.repad"):
-                    self._padded = ParticleState(*eng.repad_triple(
-                        self._padded.pos, self._padded.vel,
-                        self._padded.acc, remap))
-                self._fstate = fs_new
-            else:
-                self._fstate = res
+                    full = ParticleState(*eng.repad_triple(
+                        full.pos, full.vel, full.acc, remap))
+                    self._padded = self._shard(full)
+                self._set_fstate(fs_new)
             self.rebuilds["adopt_" + kind] += 1
             # collision safety: drop any other job due at this boundary
             while self._pqueue and self._pqueue[0][0] <= i:
@@ -519,31 +473,37 @@ class Simulator:
         elif not self._pqueue:
             # pipeline priming: exact bounds on the current permutation
             with P.span("sim.boundary.refresh"):
-                self._fstate = eng.refresh(self._padded.pos, self._fstate)
+                self._set_fstate(eng.refresh(full.pos, self._fstate))
             self.rebuilds["sync_refresh"] += 1
 
         fs_cur = self._fstate
-        ppad = self._padded.pos
+        ppad = full.pos
         if i % K == 0:
-            # the next FULL re-sort, from a host copy of this boundary's
-            # positions; its repad maps from the layout current at ITS
-            # adoption (the previous full job's result; the single worker
-            # runs jobs in order)
+            # the next FULL re-sort, from this boundary's positions; its
+            # repad maps from the layout current at ITS adoption (the
+            # previous full job's result; the single worker runs jobs in
+            # order)
             prev = self._last_full
 
-            def job(ppad_h, inv_h, prev=prev, fs_cur=fs_cur):
-                fs_new = eng.adopt(eng.build_host_padded(
-                    ppad_h.numpy(), inv_h.numpy(), device), device)
+            def job(*src, prev=prev, fs_cur=fs_cur):
+                if on_device:
+                    fs_new = eng.build_device_async(*src)
+                else:
+                    ppad_h, inv_h = src
+                    fs_new = eng.build_host_padded(ppad_h.numpy(),
+                                                   inv_h.numpy(), device)
                 fs_old = (prev.result().value[0] if prev is not None
                           else fs_cur)
                 return fs_new, eng.make_repad(fs_old, fs_new)
 
             with P.span("sim.boundary.submit"):
+                src = ((eng.unpad_array(ppad, fs_cur),) if on_device else
+                       (_HostCopy(ppad), _HostCopy(fs_cur.inv_perm)))
                 fut = self._executor().submit(
-                    self._job(job, device), _HostCopy(ppad),
-                    _HostCopy(fs_cur.inv_perm))
+                    self._job(job, device, after_window=on_device), *src)
             self._last_full = fut
-            self._pqueue.append((i + D, "full", fut))
+            self._pqueue.append((i + D, "device" if on_device else "full",
+                                 fut))
         elif (i + 1 - D) % K != 0:
             # background refresh, adopted next boundary (skipped when a
             # full adoption lands there)
@@ -600,13 +560,9 @@ class Simulator:
                 max_workers=1, thread_name_prefix="tree-build")
         return self._pool
 
-    def _drop_pending(self) -> None:
+    def _drop_queue(self) -> None:
         """Cancel or finish every queued rebuild job (their results are
         discarded, their errors raised) and reset the pipeline."""
-        if self._pending is not None:
-            if not self._pending.cancel():
-                self._pending.result()
-            self._pending = None
         while self._pqueue:
             _, _, f = self._pqueue.popleft()
             if not f.cancel():
@@ -621,7 +577,7 @@ class Simulator:
             self.graph.release()
         if self._fmm is None:
             return
-        self._drop_pending()
+        self._drop_queue()
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None

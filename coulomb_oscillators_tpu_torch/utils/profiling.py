@@ -49,9 +49,7 @@ The names recorded, and the per-layer metric each serves:
   ``kd.lists.near_entries``, ``kd.lists.near_rows``,
   ``kd.lists.near_row_max``: counters of each list build, its near (P2P)
   entries, sub-leaf rows and longest row's entries
-  (``near_entries_per_row``); ``kd.traverse.device`` and
-  ``kd.lists.device``: each traversal and each list layout run on a card,
-  with its host seconds;
+  (``near_entries_per_row``);
   ``graph.capture``, ``graph.copy_frozen``, ``graph.replay``: the step
   graph (``utils/graphs.py``); ``io.write_state``: snapshot I/O;
   ``fmm.refresh``, ``fmm.upward``, ``fmm.m2l``, ``fmm.downward``,

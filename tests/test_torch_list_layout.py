@@ -144,11 +144,11 @@ def test_layout_equals_numpy_and_reference(case, monkeypatch):
         assert (near.shape[0] > 0) == coll
         want, near_cap = _numpy_layout(caps, near_cap, m2l, near, L,
                                        eng.G_blk, g)
-        got = [eng._lists_to_state(perm, inv, c, lam, m2l, near, {}, "cpu"),
+        got = [eng._lists_to_state(perm, inv, c, lam, m2l, near, {}),
                engs[1]._lists_to_state(
                    perm, inv, c, lam,
                    torch.from_numpy(m2l.astype(np.int32)),
-                   torch.from_numpy(near.astype(np.int32)), {}, "cpu")]
+                   torch.from_numpy(near.astype(np.int32)), {})]
         ref = jeng._lists_to_state(perm, inv, c, lam, m2l, near, {})
         for fs, e in zip(got, engs):
             assert e.caps == caps and e.near_cap == near_cap

@@ -32,9 +32,13 @@ N = 2048
 X_STD = (0.003, 0.001, 0.01)
 CFG = dict(fmm_order=3, tree_radius=2.0)
 # name: (config, steps): one sync boundary; two async boundaries (a
-# priming refresh, then an adopted background rebuild)
+# priming refresh, then an adopted background rebuild), also with the
+# resort/pipeline cadence 2/2, which mesh mode ignores as the reference's
+# does
 RUNS = {"sync": (dict(CFG, tree_steps=4, tree_async=False), 6),
-        "async": (dict(CFG, tree_steps=3, tree_async=True), 8)}
+        "async": (dict(CFG, tree_steps=3, tree_async=True), 8),
+        "async_resort2": (dict(CFG, tree_steps=3, tree_async=True,
+                               tree_resort_every=2, tree_pipeline=2), 8)}
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +80,9 @@ def test_mesh_trajectory_matches_reference(reference, ranks, ndev, mode):
     Simulator (its own bound for its mesh mode: the sharded window has no
     geometry refresh, the single-device one has); every rank returned the
     same state and adopted the same integer lists; the state really is
-    distributed."""
+    distributed.  Mesh mode adopts a re-sort at every boundary whatever
+    the resort/pipeline cadence: "async_resort2" runs "async"'s rebuilds
+    and ends at its positions, bit for bit."""
     r = ranks(ndev)[mode]
     want = reference[mode]
     assert np.abs(r["pos"] - want).max() / np.abs(want).max() < 1e-4
@@ -86,6 +92,8 @@ def test_mesh_trajectory_matches_reference(reference, ranks, ndev, mode):
     assert r["shard_shape"] == (G // ndev, C, 3)
     assert r["rebuilds"] == ({"sync_full": 1} if mode == "sync" else
                              {"sync_refresh": 1, "adopt_full": 1})
+    if mode == "async_resort2":
+        assert np.array_equal(r["pos"], ranks(ndev)["async"]["pos"])
 
 
 def test_mesh_mode_needs_a_kd_engine(ranks):

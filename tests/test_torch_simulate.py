@@ -36,13 +36,18 @@ def beam():
     dict(tree_async=False),
     dict(tree_async=True, tree_resort_every=2),
     dict(tree_async=True, tree_pipeline=2),
-], ids=["async", "sync", "resort2", "pipeline2"])
+    dict(tree_async=True, tree_async_build="device", tree_resort_every=2,
+         tree_pipeline=2),
+], ids=["async", "sync", "resort2", "pipeline2", "device_resort2"])
 def test_trajectory_matches_reference(beam, kw):
     """7 leapfrog steps with tree_steps=3 cross 2 rebuild boundaries; the
     resort/pipeline cadences run 10 steps (3 boundaries), so a background
     refresh, or a full re-sort adopted two boundaries late, is adopted.
-    Both packages build the same trees and lists, so positions differ only
-    by float32 summation order; max|dpos|/max|pos| <= 1e-5."""
+    The device builder ignores the resort/pipeline cadence, as the
+    reference's does: it adopts a re-sort at every boundary after the
+    priming refresh, and no background refresh.  Both packages build the
+    same trees and lists, so positions differ only by float32 summation
+    order; max|dpos|/max|pos| <= 1e-5."""
     pos, vel = beam
     steps = 7 if len(kw) == 1 else 10
     cfg = dict(fmm_order=3, tree_radius=2.0, tree_steps=3, **kw)
@@ -60,7 +65,9 @@ def test_trajectory_matches_reference(beam, kw):
     dev = np.abs(got - ref).max() / np.abs(ref).max()
     assert dev <= 1e-5, dev
     assert np.isfinite(out.vel.numpy()).all()
-    if kw["tree_async"]:
+    if kw.get("tree_async_build") == "device":
+        assert dict(ts.rebuilds) == {"sync_refresh": 1, "adopt_device": 2}
+    elif kw["tree_async"]:
         assert ts.rebuilds["adopt_full"] >= 1
         if "tree_resort_every" in kw:
             assert ts.rebuilds["adopt_refresh"] >= 1
