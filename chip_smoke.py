@@ -8,8 +8,9 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
 
   1. device: a CUDA card, its name and power limit, the toolchain, and
      float32 matmuls kept out of TF32;
-  2. build: the three kernels (csrc/p2p.cu in dim 3 and csrc/p2p2d.cu in
-     dim 2, float and double each, and csrc/direct.cu; nvcc for sm_90a,
+  2. build: the four kernels (csrc/p2p.cu in dim 3 and csrc/p2p2d.cu in
+     dim 2, float and double each, csrc/direct.cu, and csrc/m2l.cu with
+     the production layout's tables (3D, p = 6); nvcc for sm_90a,
      ptxas registers and spills printed for every instantiation) and the
      native host library (g++), all from the sources in this checkout and
      all started together;
@@ -26,7 +27,8 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      then init_acc + 3 windows of tree_steps=8 at N=1M with the default
      async rebuild pipeline (the first boundary primes it, the next one
      adopts a background re-sort with a repad); positions stay finite and
-     the P2P kernel's launch count equals the number of force evaluations;
+     the P2P and M2L kernels' launch counts equal the number of force
+     evaluations;
      every traversal of that run (the build, the priming refresh, the
      re-sorts) ran on the card, none on the host, with one to 2L + 1
      launches of the traversal kernel each;
@@ -208,7 +210,13 @@ Simulator runs its window steps as CUDA graphs unless ``CO_CUDA_GRAPHS=0``.
      card lists equal the native traversal's (near element for element,
      m2l after a (target, source) sort), and so do the lists made from
      the plain version's pairs on the same card tensors; the frontier
-     timed by CUDA events beside the plain version and its byte bound.
+     timed by CUDA events beside the plain version and its byte bound;
+ 22. the M2L kernel (csrc/m2l.cu, through ops/fmm/m2l_cuda.py) on the 1M
+     production lists (the beam of phases 3-5 with its auto stale margin
+     at 16/2/2, fly mode, groups of 8): within 1e-5 of max|ref| of the
+     plain loop (KdFmmEngine.m2l_plain) on the same state, both timed by
+     CUDA events, beside the operation and byte bound of the valid
+     entries (m2l_cuda.work); the kernels line's m2l entry.
 
 Any failure raises: the script then exits non-zero without its last line.
 Usage, from the repository root:  python3 chip_smoke.py
@@ -1983,9 +1991,9 @@ def _phase_far_studies(smi):
     ws = out["m2l_window_stats"]
     _require(ws["config"]["K"] > 0 and len(ws["lines"]) == 13,
              f"window stats: K {ws['config']['K']} > 0, 13 lines")
-    names = {"m2l_micro": ["full", "gather", "gather64", "gather128",
-                           "gathersrt", "compute", "segsum", "grouped8",
-                           "grouped16", "grouped32"],
+    names = {"m2l_micro": ["full", "plain", "gather", "gather64",
+                           "gather128", "gathersrt", "compute", "segsum",
+                           "grouped8", "grouped16", "grouped32"],
              "m2l_micro2": ["full", "winchunk", "winchunk_bf", "srcbcast8",
                             "srcbcast16"],
              "l2p_micro": ["monomials", "expand+W", "final einsum",
@@ -2004,8 +2012,8 @@ def _phase_far_studies(smi):
     held = [r["rel_dev"] for s in ("m2l_micro", "m2l_micro2")
             for r in out[s]["rows"]
             if "rel_dev" in r and r.get("dtype") != "bfloat16"]
-    _require(len(held) == 12 and max(held) <= TOL,
-             f"{len(held)} float32 variants == 12, each <= {TOL}")
+    _require(len(held) == 13 and max(held) <= TOL,
+             f"{len(held)} float32 variants == 13, each <= {TOL}")
 
 
 def _phase_traversal(dev, smi):
@@ -2033,6 +2041,55 @@ def _phase_traversal(dev, smi):
     return rows, traverse.launches - launches
 
 
+def _phase_m2l(dev, smi):
+    """Phase 22: the M2L kernel on the 1M production lists (the beam of
+    phases 3-5 at p = 6, r = 1.67, sub-leaf boost 1.5 and the auto stale
+    margin of the 16/2/2 cadence; fly mode, groups of 8, as the engine
+    defaults): within 1e-5 of max|ref| of the plain loop on the same
+    state, both timed by CUDA events, beside the bound of the valid
+    entries' work (``m2l_cuda.work``, utils/roofline.py's peaks).  Returns
+    the row and the kernel's launches in the phase."""
+    import torch
+    from coulomb_oscillators_tpu_torch import SimConfig
+    from coulomb_oscillators_tpu_torch.models import init_dist as ID
+    from coulomb_oscillators_tpu_torch.ops.fmm import m2l_cuda
+    from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import FAR, KdFmmEngine
+    from coulomb_oscillators_tpu_torch.simulate import auto_stale_margin
+    from coulomb_oscillators_tpu_torch.utils import roofline
+
+    launches = m2l_cuda.launches
+    cfg = SimConfig(fmm_order=6, tree_radius=1.67, mac_sub_boost=1.5,
+                    tree_steps=16, tree_resort_every=2, tree_pipeline=2)
+    u_std = tuple(w * x for w, x in zip(cfg.omega0, X_STD))
+    pos_h, vel_h = ID.init_gaussian(N, X_STD, u_std, seed=SEED)
+    eng = KdFmmEngine(cfg, N)
+    _require(eng.m2l_fly and eng.m2l_group == 8,
+             f"the engine's defaults: fly {eng.m2l_fly}, g {eng.m2l_group}")
+    eng.stale_margin_abs = auto_stale_margin(vel_h, cfg)
+    pos = torch.from_numpy(pos_h).to(dev)
+    fs = eng.build(pos)
+    mh = eng._stage_multipoles(eng.pad_array(pos, fs, fill=FAR), fs)
+    got = eng._stage_m2l(mh, fs)
+    ref = eng.m2l_plain(mh, fs)
+    mabs = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    _require(err / mabs <= 1e-5, f"M2L kernel vs plain {err / mabs:.3e} "
+             f"<= 1e-5")
+    ms = _cuda_ms(lambda: eng._stage_m2l(mh, fs), 20, torch)
+    plain_ms = _cuda_ms(lambda: eng.m2l_plain(mh, fs), 3, torch)
+    w = m2l_cuda.work(eng.tables, fs, fly=True)
+    flop_ms = w["flops"] / roofline.FP32_FLOPS * 1e3
+    byte_ms = w["bytes"] / roofline.HBM_BYTES * 1e3
+    bound = max(flop_ms, byte_ms)
+    row = dict(n=N, p=6, r=1.67, K=int(fs.m2l_tgt.shape[0]), **w,
+               flop_ms=flop_ms, byte_ms=byte_ms, bound_ms=bound,
+               bound_by="operations" if flop_ms >= byte_ms else "bytes",
+               ms=ms, bound_share=bound / ms, plain_ms=plain_ms,
+               max_abs_err=err, max_abs_ref=mabs, max_rel_err=err / mabs)
+    print(json.dumps({"m2l": row, "card": smi}), flush=True)
+    return row, m2l_cuda.launches - launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2056,9 +2113,11 @@ def main() -> int:
     from coulomb_oscillators_tpu_torch.models import oscillator as M
     from coulomb_oscillators_tpu_torch.ops import direct as D
     from coulomb_oscillators_tpu_torch.ops import energy as E
-    from coulomb_oscillators_tpu_torch.ops.fmm import (kdtree, p2p_cuda,
-                                                       traverse)
+    from coulomb_oscillators_tpu_torch.ops.fmm import (kdtree, m2l_cuda,
+                                                       p2p_cuda, traverse)
     from coulomb_oscillators_tpu_torch.ops.fmm.kdtree import KdFmmEngine
+    from coulomb_oscillators_tpu_torch.ops.multipole.tables import (
+        build_tables)
     from coulomb_oscillators_tpu_torch.ops.reductions import mean_rel_err
     from coulomb_oscillators_tpu_torch.simulate import Simulator
     from coulomb_oscillators_tpu_torch.state import particle_state_from_numpy
@@ -2081,14 +2140,18 @@ def main() -> int:
 
     # ---- 2. build: one compiler per source, all started together --------
     t0 = time.perf_counter()
-    libs = (p2p_cuda.library, p2p_cuda.library_2d, D.library)
+    # the M2L kernel of the production layout (3D, p = 6); other layouts
+    # build at their first use
+    m2l_lib = m2l_cuda.library_for(build_tables(3, 6, no_dipole=True))
+    libs = (p2p_cuda.library, p2p_cuda.library_2d, D.library, m2l_lib)
     with concurrent.futures.ThreadPoolExecutor(len(libs) + 1) as pool:
         for f in [pool.submit(lib.get) for lib in libs] + [
                 pool.submit(native.get_lib)]:
             f.result()
     print(f"build: p2p.cu {p2p_cuda.library.build_seconds:.2f} s, p2p2d.cu "
           f"{p2p_cuda.library_2d.build_seconds:.2f} s, direct.cu "
-          f"{D.library.build_seconds:.2f} s, co_native.cpp "
+          f"{D.library.build_seconds:.2f} s, m2l.cu (3D, p = 6) "
+          f"{m2l_lib.build_seconds:.2f} s, co_native.cpp "
           f"{native.build_seconds:.2f} s (concurrent)")
     for lib in libs:
         fn = ""
@@ -2156,7 +2219,7 @@ def main() -> int:
     sim = Simulator(cfg, N, engine="fmm3_kd")
     state = particle_state_from_numpy(pos_h, vel_h, device=dev)
     torch.cuda.synchronize()
-    p2p_cuda.launches = 0
+    p2p_cuda.launches = m2l_cuda.launches = 0
     traverse.launches = traverse.reruns = 0
     trav0 = (kdtree.device_traversals, kdtree.native_traversals,
              kdtree.raw_traversals)
@@ -2177,7 +2240,7 @@ def main() -> int:
         job_s.append(sum(sim._fmm.last_build_times.values()))
     final = sim.current_state()
     torch.cuda.synchronize()
-    p2p_launches = p2p_cuda.launches
+    p2p_launches, m2l_launches = p2p_cuda.launches, m2l_cuda.launches
     sim.close()
     card_trav, host_trav, raw_trav = (
         now - was for now, was in zip((kdtree.device_traversals,
@@ -2189,6 +2252,8 @@ def main() -> int:
              and final.pos.shape == (N, 3), "finite [N, 3] positions")
     _require(p2p_launches == evals,
              f"{p2p_launches} P2P kernel launches == {evals} force evaluations")
+    _require(m2l_launches == evals, f"{m2l_launches} M2L kernel launches "
+             f"== {evals} force evaluations")
     _require(sim.rebuilds["adopt_full"] == WINDOWS - 2,
              f"{WINDOWS - 2} adopted background rebuilds: {dict(sim.rebuilds)}")
     _require(native._lib is not None, "the native host library was used")
@@ -2207,9 +2272,9 @@ def main() -> int:
           f"rebuilds {dict(sim.rebuilds)}; boundary wait s {wait_s}; "
           f"host rebuild s {job_s}; "
           f"last rebuild breakdown {sim._fmm.last_build_times}; "
-          f"p2p launches {p2p_launches} = force evals {evals}; "
-          f"traversals on the card {card_trav} ({trav_launches} kernel "
-          f"launches)")
+          f"p2p launches {p2p_launches} = m2l launches {m2l_launches} = "
+          f"force evals {evals}; traversals on the card {card_trav} "
+          f"({trav_launches} kernel launches)")
     del sim, state, final, pos
     raw_main = kdtree.raw_traversals
     _phase("simulator", t0)
@@ -2464,6 +2529,11 @@ def main() -> int:
     trav_rows, trav_phase_launches = _phase_traversal(dev, smi)
     _phase("traversal", t0)
 
+    # ---- 22. the M2L kernel on the production lists ---------------------
+    t0 = time.perf_counter()
+    m2l_row, m2l_phase_launches = _phase_m2l(dev, smi)
+    _phase("m2l", t0)
+
     row, drow = p2p_rows[0], direct_rows[3, N_CLI]
     # no single PyTorch call computes a masked leaf-pair sum or an
     # all-pairs softened Coulomb sum, so library_ms is null
@@ -2556,7 +2626,20 @@ def main() -> int:
          "bound_ms": trav_rows[0]["frontier_bound_ms"],
          "bound_by": "bytes",
          "bound_share": trav_rows[0]["frontier_share"],
-         "library_ms": None, "cases": trav_rows}]}))
+         "library_ms": None, "cases": trav_rows},
+        {"name": "m2l", "route": "cuda",
+         "source": "coulomb_oscillators_tpu_torch/csrc/m2l.cu",
+         "replaces": None,
+         "replaces_plain": "coulomb_oscillators_tpu_torch/ops/fmm/"
+                           "kdtree.py KdFmmEngine.m2l_plain",
+         "launches": m2l_launches,
+         "launches_by_path": {"simulator": m2l_launches,
+                              "m2l": m2l_phase_launches},
+         **{k: m2l_row[k] for k in (
+             "max_abs_err", "max_abs_ref", "max_rel_err", "ms", "plain_ms",
+             "entries", "flops", "bytes", "flop_ms", "byte_ms")},
+         **{k: m2l_row[k] for k in bound_keys}, "library_ms": None,
+         "cases": [m2l_row]}]}))
     print(_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

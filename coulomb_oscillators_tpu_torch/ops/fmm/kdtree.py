@@ -29,8 +29,11 @@ weight does not underflow, and its block SoA has a VMEM budget); on the
 card the dim-2 kernel's float32 pad skip drops terms of ~5e-19 a pad,
 below the float32 resolution of a real target's sum (``csrc/p2p.cu``,
 "Pads").  A CPU tensor's P2P stage is the plain sum.  The far field is
-plain PyTorch.  Geometry stays in the working dtype; the native builder and
-traversal take float32 copies, as in the reference.
+plain PyTorch but for the M2L stage, which on a CUDA tensor runs the
+hand-written kernel (``m2l_cuda``, p <= 6, float32 or float64, fly or
+stored mode, any group size) and on a CPU tensor its plain loop.
+Geometry stays in the working dtype; the native builder and traversal
+take float32 copies, as in the reference.
 
 The M2L geometry has the reference's two modes, chosen by ``CO_M2L_FLY``
 at engine init: fly mode (the default) folds each entry's geometry from
@@ -58,7 +61,7 @@ import torch
 
 from coulomb_oscillators_tpu_torch import native
 from coulomb_oscillators_tpu_torch.config import SimConfig, round_to_dtype
-from coulomb_oscillators_tpu_torch.ops.fmm import p2p_cuda, traverse
+from coulomb_oscillators_tpu_torch.ops.fmm import m2l_cuda, p2p_cuda, traverse
 from coulomb_oscillators_tpu_torch.ops.multipole import operators as mop
 from coulomb_oscillators_tpu_torch.ops.multipole.tables import build_tables
 from coulomb_oscillators_tpu_torch.utils import profiling as P
@@ -1224,22 +1227,38 @@ class KdFmmEngine:
 
     def _stage_m2l(self, mpole_heap: torch.Tensor,
                    fs: FmmState) -> torch.Tensor:
-        """Grouped M2L over the directed entry list (t <- s): per chunk,
-        gather source multipoles and the entries' geometry (fly mode: fold
-        it from center/lam; stored mode: read the chunk of the stored
-        fold), apply m2l_sparse_pre, dense-reduce each group of g
-        same-target entries (g = 1: none), and add the groups into an
-        [Mheap+1, S_Lt] accumulator with a sorted index_add_ (the twin's
-        segment_sum).  Returns local_heap [Mheap, S_Lt]."""
-        t = self.tables
-        Mheap = _heap_off(self.L + 1)
-        g = self.m2l_group
+        """Grouped M2L over the directed entry list (t <- s).  Returns
+        local_heap [Mheap, S_Lt].  A CUDA tensor of the sparse forms (p <=
+        SPARSE_P_MAX) runs the Hopper kernel (``m2l_cuda``): the whole
+        stage in one launch.  Otherwise :meth:`m2l_plain`."""
+        t, g = self.tables, self.m2l_group
         K = fs.m2l_tgt.shape[0]
         if g > 1 and fs.m2l_gtgt.shape[0] * g != K:
             raise ValueError("M2L lists are not in the grouped layout")
         if not self.m2l_fly and fs.m2l_h2.shape[0] != K:
             raise ValueError("stored-mode M2L needs a state with the stored "
                              "fold (this one was built in fly mode)")
+        if mpole_heap.device.type != "cuda" or t.p > mop.SPARSE_P_MAX:
+            return self.m2l_plain(mpole_heap, fs)
+        geo = (dict(center=fs.center, lam=fs.lam) if self.m2l_fly else
+               dict(h2=fs.m2l_h2, w=fs.m2l_w, logc=fs.m2l_logc))
+        return m2l_cuda.m2l(t, mpole_heap, fs.m2l_tgt, fs.m2l_src,
+                            fs.m2l_valid, fs.m2l_gtgt, g, **geo)
+
+    def m2l_plain(self, mpole_heap: torch.Tensor,
+                  fs: FmmState) -> torch.Tensor:
+        """The M2L stage in plain PyTorch on any device (the CPU path, the
+        dense forms' path, and the kernel's oracle), per chunk: gather
+        source multipoles and the entries' geometry (fly mode: fold it
+        from center/lam; stored mode: read the chunk of the stored fold),
+        apply m2l_sparse_pre, dense-reduce each group of g same-target
+        entries (g = 1: none), and add the groups into an [Mheap+1, S_Lt]
+        accumulator with a sorted index_add_ (the twin's segment_sum).
+        Returns local_heap [Mheap, S_Lt]."""
+        t = self.tables
+        Mheap = _heap_off(self.L + 1)
+        g = self.m2l_group
+        K = fs.m2l_tgt.shape[0]
         chunk = self._m2l_chunk(K)
         acc = torch.zeros(Mheap + 1, t.S_Lt, dtype=mpole_heap.dtype,
                           device=mpole_heap.device)

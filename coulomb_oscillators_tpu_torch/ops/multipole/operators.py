@@ -51,26 +51,38 @@ def _ix(t: FmmTables, name: str, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
 
 
+# the index and coefficient tables of each sparse operator
+_TABLES = {"m2l": ("m2l_idx", "m2l_coef"), "m2l_neg": ("m2l_idx", "m2l_coef"),
+           "m2m": ("m2m_idx", "m2m_coef"), "l2l": ("l2l_idx", "l2l_coef")}
+
+
+@functools.lru_cache(maxsize=None)
+def term_list(t: FmmTables, which: str):
+    """The terms of a sparse operator table as numpy arrays (i [T], j [T],
+    h [T], c [T]): out[i] += c * A[j] * B[h].  The (i, j) order and the
+    skipped zero coefficients are the reference's term lists
+    (``_m2l_terms``, ``_m2m_terms``, ``_l2l_terms``): row-major nonzeros,
+    so grouped by i in ascending order."""
+    idx, coef = (getattr(t, name) for name in _TABLES[which])
+    ii, jj = np.nonzero(coef)
+    c = coef[ii, jj]
+    if which == "m2l_neg":
+        # the opposite direction: H_k(-Rhat) = (-1)^k H_k(Rhat), k = n + m
+        c = c * (-1.0) ** (np.asarray(t.nt_order)[ii]
+                           + np.asarray(t.m_order)[jj])
+    return ii, jj, idx[ii, jj].astype(np.int64), c
+
+
 @functools.lru_cache(maxsize=None)
 def _terms(t: FmmTables, which: str, dtype: torch.dtype,
            device: torch.device):
-    """Flattened term list of a sparse operator table: (j [T], h [T],
-    coef matrix [T, S_out]) with coef[t, i_t] = c_t.  The (i, j) order and
-    the skipped zero coefficients are the reference's term lists
-    (``_m2l_terms``, ``_m2m_terms``, ``_l2l_terms``)."""
-    idx, coef = {"m2l": (t.m2l_idx, t.m2l_coef),
-                 "m2l_neg": (t.m2l_idx, t.m2l_coef),
-                 "m2m": (t.m2m_idx, t.m2m_coef),
-                 "l2l": (t.l2l_idx, t.l2l_coef)}[which]
-    ii, jj = np.nonzero(coef)                   # row-major: grouped by i
-    S = np.zeros((ii.size, coef.shape[0]))
-    S[np.arange(ii.size), ii] = coef[ii, jj]
-    if which == "m2l_neg":
-        # the opposite direction: H_k(-Rhat) = (-1)^k H_k(Rhat), k = n + m
-        S[np.arange(ii.size), ii] *= (-1.0) ** (
-            np.asarray(t.nt_order)[ii] + np.asarray(t.m_order)[jj])
+    """:func:`term_list` as tensors on the device: (j [T], h [T], coef
+    matrix [T, S_out]) with coef[t, i_t] = c_t."""
+    ii, jj, hh, c = term_list(t, which)
+    S = np.zeros((ii.size, getattr(t, _TABLES[which][1]).shape[0]))
+    S[np.arange(ii.size), ii] = c
     return (torch.as_tensor(jj, device=device),
-            torch.as_tensor(idx[ii, jj].astype(np.int64), device=device),
+            torch.as_tensor(hh, device=device),
             torch.as_tensor(S, dtype=dtype, device=device))
 
 

@@ -7,9 +7,11 @@ the stored fold and its time is the contraction alone.  Variants, in the
 reference's order, each over the production entry list in the engine's
 chunks (``KdFmmEngine._m2l_chunk``) unless said otherwise:
 
-  full       the production ``_stage_m2l``: row gather, ``m2l_sparse_pre``,
-             a dense-reduce of each group of ``CO_M2L_GROUP`` entries and
-             the sorted ``index_add_``
+  full       the production ``_stage_m2l``: on a card the M2L kernel
+             (``csrc/m2l.cu``), one launch; on the CPU the plain loop
+  plain      the plain loop (``KdFmmEngine.m2l_plain``) on the same
+             device: row gather, ``m2l_sparse_pre``, a dense-reduce of each
+             group of ``CO_M2L_GROUP`` entries and the sorted ``index_add_``
   gather     the multipole row gather alone, summed
   gather64   the same from a heap copied into zeroed rows of 64 floats
   gather128  ... of 128 floats (a 53-float row is 212 B and straddles
@@ -26,7 +28,8 @@ chunks (``KdFmmEngine._m2l_chunk``) unless said otherwise:
              g, then a g-times-smaller ``index_add_``; with its pad waste
 
 Each float32 variant is held against what it must equal, max |dev| /
-max |ref| <= 1e-5, and a miss raises: ``grouped*`` against ``full``,
+max |ref| <= 1e-5, and a miss raises: ``plain`` and ``grouped*`` against
+``full``,
 ``compute`` against ``full.sum(0)``, ``gather*`` against the gathered
 rows' sum (a count of each source row times the heap, in float64),
 ``segsum`` against its own value summed in float64.  Each row carries the
@@ -188,6 +191,7 @@ def variants(eng, fs, mh) -> Dict[str, Variant]:
         return acc[:Mheap]
 
     out["full"] = Variant(lambda: eng._stage_m2l(mh, fs), K, S_M, "", {})
+    out["plain"] = Variant(lambda: eng.m2l_plain(mh, fs), K, S_M, "full", {})
     out["gather"] = Variant(gather(src), K, S_M, "gather", {})
     for w in PAD_WIDTHS:
         out[f"gather{w}"] = Variant(gather(src, w), K, w, "gather", {})

@@ -51,8 +51,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 16384
 R = {3: 1.43, 6: 1.67}            # m2l_micro2's default r, the bench's r
 CHUNK = 2048                      # m2l_micro2's default chunk
-MICRO = ["full", "gather", "gather64", "gather128", "gathersrt", "compute",
-         "segsum", "grouped8", "grouped16", "grouped32"]
+MICRO = ["full", "plain", "gather", "gather64", "gather128", "gathersrt",
+         "compute", "segsum", "grouped8", "grouped16", "grouped32"]
 MICRO2 = ["full", "winchunk", "winchunk_bf", "srcbcast8", "srcbcast16"]
 L2P_STAGES = ["monomials", "expand+W", "final einsum", "final batchmatmul",
               "l2p_field_blocked", "l2l (G nodes)"]
@@ -261,20 +261,20 @@ def studied(request):
             "refs": _identities(state, mh, full, L, eng.tables)}
 
 
-MICRO_IDENTITY = {"full": "full", "gather": "gather", "gather64": "gather",
-                  "gather128": "gather", "gathersrt": "gather",
-                  "compute": "full_sum", "segsum": "segsum",
-                  "grouped8": "full", "grouped16": "full",
+MICRO_IDENTITY = {"full": "full", "plain": "full", "gather": "gather",
+                  "gather64": "gather", "gather128": "gather",
+                  "gathersrt": "gather", "compute": "full_sum",
+                  "segsum": "segsum", "grouped8": "full", "grouped16": "full",
                   "grouped32": "full"}
 
 
 @pytest.mark.parametrize("name", MICRO)
 def test_m2l_micro_variant_holds_its_identity(studied, name):
-    """Each m2l_micro variant (full against the reference's stored-mode
-    stage, gather* against the gathered rows' sum, compute against the
-    stage's sum over targets, segsum against its value in float64,
-    grouped* against the stage) within 1e-5 of max |ref|, at p=3 and p=6
-    (segsum and grouped* run at p=3, where S_M < S_Lt)."""
+    """Each m2l_micro variant (full and plain against the reference's
+    stored-mode stage, gather* against the gathered rows' sum, compute
+    against the stage's sum over targets, segsum against its value in
+    float64, grouped* against the stage) within 1e-5 of max |ref|, at p=3
+    and p=6 (segsum and grouped* run at p=3, where S_M < S_Lt)."""
     ref = studied["refs"][MICRO_IDENTITY[name]]
     got = studied["got"][name]
     assert got.shape == ref.shape and got.dtype == np.float32

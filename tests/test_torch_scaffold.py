@@ -204,7 +204,8 @@ def test_port_imports_no_jax():
         "'scripts.pshard_scaling', 'scripts.stale_anatomy', "
         "'scripts.err_diag', 'scripts.leaf_size_probe', "
         "'scripts.sortmode_probe', 'scripts.m2l_window_stats', "
-        "'scripts.m2l_micro', 'scripts.m2l_micro2', 'scripts.l2p_micro']\n"
+        "'scripts.m2l_micro', 'scripts.m2l_micro2', 'scripts.l2p_micro', "
+        "'ops.fmm.m2l_cuda']\n"
         "missing = [m for m in new if P.__name__ + '.' + m not in "
         "sys.modules]\n"
         "assert not missing, missing\n"
